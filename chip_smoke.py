@@ -1,40 +1,72 @@
 #!/usr/bin/env python3
 """Smoke run of horovod_tpu_torch on one NVIDIA card: builds the port's
-CUDA kernels from this checkout and drives its serving path.
+CUDA kernels from this checkout and drives its serving and training
+paths.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   nvcc builds the flash-attention forward (ptxas register report
-   printed).
-2. Kernel vs plain: the kernel against its plain PyTorch version at the
-   served shapes (B in 1, 2, 4; L 2048; 32 heads; head dim 128; bf16;
-   causal), non-causal, head dim 64, and small float32 cases. Error on o
-   and lse, kernel time (CUDA events), plain time,
+   nvcc builds the flash-attention forward and backward libraries, one
+   nvcc per source, started together (ptxas register report printed).
+2. Forward kernel vs plain: the kernel against its plain PyTorch version
+   at the served shapes (B in 1, 2, 4; L 2048; 32 heads; head dim 128;
+   bf16; causal), non-causal, head dim 64, and small float32 cases.
+   Error on o and lse, kernel time (CUDA events), plain time,
    F.scaled_dot_product_attention's time as a yardstick (timed here,
    never called by the port), the bound and the achieved TFLOP/s. At
    the first served shape it also shows that the o check fails two
    faults planted in a copy of the plain version.
-3. Whole path vs plain: the served forward at Llama-2-7B width and 2
-   layers, flash kernel vs the plain attention swapped in for it, on
+3. Served forward vs plain: the served forward at Llama-2-7B width and
+   2 layers, flash kernel vs the plain attention swapped in for it, on
    the same weights and tokens.
 4. Serving at Llama-2-7B width and full depth (32 layers, bf16):
    ServingFrontend with one worker on the card, ladder b = 1, 2, 4,
    6 requests of 2048 tokens. Asserts 6 completed, 0 failed, no worker
    failure, 3 warm-ups and no growth, finite logits, and kernel
    launches = 32 x (warm-ups + served batches).
-5. A ``{"kernels": [...]}`` line, the card line, then the last line
+5. Backward kernels vs plain: dK/dV and dQ against the plain backward
+   (float32) on the same inputs, at the training shape (2, 2048, 32,
+   128) causal bf16, at B = 4, non-causal, head dim 64, head dim 256,
+   and small float32 cases. At the training shape it shows that the
+   check fails three faults planted in a copy of the plain backward,
+   each by 10x its tolerance or more, and it times each kernel, the
+   plain backward and the backward of F.scaled_dot_product_attention
+   (timed only).
+6. Training path vs plain: Llama-2-7B width, 2 layers, B = 2, L =
+   2048: loss and every parameter's gradient with the kernels against
+   the same step with both plain versions swapped in; wq's gradient is
+   non-zero, and two backward passes give bitwise equal gradients.
+7. Training at Llama-2-7B width, 4 layers, B = 2, L = 2048, bf16:
+   ``build_train_step`` with AdamW (optax.adamw(3e-4)'s settings), 5
+   steps on one batch. The loss is finite at every step and falls from
+   step 0 to step 4; each of the three kernels launches 4 x 5 times.
+   Median step time, tokens/s and peak memory, then one more step timed
+   in parts (layers' forward, LM head and loss, backward, AdamW).
+8. A ``{"kernels": [...]}`` line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Tolerances, on the worst row's relative error (``row_rel_err``: the
-2-norm of the error over the 2-norm of the plain result, per query row
-of o and per request's logits): bf16 1e-2 (the kernel rounds P to bf16
-before the P V product, and both paths round o and every activation to
-bf16, about 2^-9 relative each); float32 1e-5 (summation order only).
-lse, on max abs error: 1e-4 (float32 statistics of the same scores).
-float32 matrix products run in full float32 (TF32 off).
+Forward tolerances, on the worst row's relative error (``row_rel_err``:
+the 2-norm of the error over the 2-norm of the plain result, per query
+row of o and per request's logits): bf16 1e-2 (the kernel rounds P to
+bf16 before the P V product, and both paths round o and every
+activation to bf16, about 2^-9 relative each); float32 1e-5 (summation
+order only). lse, on max abs error: 1e-4 (float32 statistics of the
+same scores).
+
+Backward tolerances, on the worst (b, h) slice's relative error
+(``slice_rel_err``: the Frobenius norm of the error over that of the
+plain result, per (b, h) slice of dq, dk and dv; a row measure does not
+fit here: with causal masking query row 0's exact dq is 0): bf16 1e-2
+(the kernels round P and dS to bf16 before their products and the
+gradients to bf16, about 2^-9 relative each; a CPU emulation of that
+rounding gives 2.4e-3); float32 1e-5 (summation order only). Training
+path: every parameter gradient within 2e-2 of the plain path's
+(``rel_err``, the Frobenius norm of the whole tensor's error over its
+own; each attention's gradient differs by up to the bf16 tolerance, and
+the forward's bf16 differences ride along), the loss within 1e-3
+relative. float32 matrix products run in full float32 (TF32 off).
 
 Without a CUDA device, or run from a directory without the package, it
 exits non-zero and prints no result.
@@ -43,6 +75,7 @@ exits non-zero and prints no result.
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -66,6 +99,14 @@ N_REQUESTS = 6
 TOL_ROW = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 TOL_LSE = 1e-4
 FAULT_TILE = 64          # the kernel's key tile
+TOL_SLICE = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+FAULT_MARGIN = 10.0      # a planted fault must exceed the tolerance 10x
+TOL_GRAD = 2e-2          # training path: per-parameter gradient
+TOL_LOSS = 1e-3          # training path: relative loss difference
+TRAIN_BATCH = 2
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 5
+LR = 3e-4
 
 
 def log(msg):
@@ -91,6 +132,28 @@ def row_rel_err(got, ref):
     return float((num / ref.norm(dim=-1).clamp_min(1e-30)).max())
 
 
+def rel_err(got, ref, dims=None):
+    """The Frobenius norm of got - ref over that of ref, taken over
+    ``dims`` (all of them by default) and maximised over the rest."""
+    got, ref = (x.detach().float() if isinstance(x, torch.Tensor)
+                else torch.from_numpy(np.array(x, np.float32))
+                for x in (got, ref))
+    dims = tuple(range(ref.dim())) if dims is None else dims
+    norm = torch.linalg.vector_norm
+    return float((norm(got - ref, dim=dims)
+                  / norm(ref, dim=dims).clamp_min(1e-30)).max())
+
+
+def slice_rel_err(got, ref):
+    """The worst (b, h) slice's relative error of (B, L, H, D) tensors."""
+    return rel_err(got, ref, dims=(1, 3))
+
+
+def grads_rel_err(got, ref):
+    """The worst of ``slice_rel_err`` over matching (dq, dk, dv)."""
+    return max(slice_rel_err(g, r) for g, r in zip(got, ref))
+
+
 def planted_faults(fa, q, k, v, causal, tile=FAULT_TILE):
     """o of two faulty copies of the plain version, each a bug a flash
     kernel can have: ``no_rescale`` never rescales earlier key tiles'
@@ -113,6 +176,38 @@ def planted_faults(fa, q, k, v, causal, tile=FAULT_TILE):
             "v_first_tile": v_first_tile}
 
 
+def planted_backward_faults(q, k, v, o, lse, do, causal):
+    """(dq, dk, dv) of three faulty copies of the plain backward, each a
+    bug a flash backward kernel can have: ``no_di`` leaves di out of dS;
+    ``no_causal_mask`` recomputes P over every key; ``dk_unscaled``
+    leaves the softmax scale out of dK."""
+    D = q.shape[-1]
+    scale = D ** -0.5
+
+    def bwd(di_on=True, mask_on=True, dk_scale=scale):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        if causal and mask_on:
+            L = q.shape[1]
+            mask = torch.ones(L, L, dtype=torch.bool,
+                              device=q.device).tril()
+            s = s.masked_fill(~mask, float("-inf"))
+        p = torch.exp(s - lse[..., None])
+        del s
+        dof = do.float()
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        ds = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+        if di_on:
+            ds -= (o.float() * dof).sum(-1).transpose(1, 2)[..., None]
+        ds *= p
+        del p
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * dk_scale
+        return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+    return {"no_di": bwd(di_on=False), "no_causal_mask": bwd(mask_on=False),
+            "dk_unscaled": bwd(dk_scale=1.0)}
+
+
 def time_ms(fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -126,17 +221,29 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, L, H, D, causal, dtype):
-    """Least time for the function: each input read and the output
-    written once; 4*D operations per visible (query, key) pair."""
+def attention_bound(B, L, H, D, causal, dtype, products=2, tensors=4,
+                    stats=1):
+    """Least time for attention work: ``products`` matrix products of
+    2*D operations per visible (query, key) pair, and ``tensors``
+    (B, L, H, D) tensors and ``stats`` (B, H, L) float32 rows each read
+    or written once. The defaults are the forward's: q k^T and P v;
+    q, k, v and o; lse."""
     pairs = L * (L + 1) // 2 if causal else L * L
-    ops = 4.0 * B * H * D * pairs
+    ops = 2.0 * products * B * H * D * pairs
     esize = torch.finfo(dtype).bits // 8
-    nbytes = 4.0 * B * L * H * D * esize + 4.0 * B * H * L
+    nbytes = float(tensors) * B * L * H * D * esize + stats * 4.0 * B * H * L
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", ops)
+
+
+# The backward's work, as attention_bound's (products, tensors, stats):
+# dK/dV does S^T, dP^T, P^T dO and dS^T Q, reads q, k, v, dO, lse and
+# di and writes dk, dv; dQ does S, dP and dS K, reads the same and
+# writes dq; the function as a whole needs five products (S, dP and the
+# three gradients), reads q, k, v, o, dO and lse and writes dq, dk, dv.
+BWD_WORK = {"dkv": (4, 6, 2), "dq": (3, 5, 2), "function": (5, 8, 1)}
 
 
 def phase_kernel_vs_plain(fa, dev):
@@ -210,17 +317,27 @@ def composed_forward(tfm, cfg):
 
 
 @contextlib.contextmanager
-def plain_attention(ra, fa):
-    """Run the model's attention through the kernel's plain version."""
-    kernel = ra.flash_attention_fwd
-    ra.flash_attention_fwd = fa.flash_attention_fwd_plain
+def plain_attention(fa):
+    """Run the model's attention, forward and backward, through the
+    kernels' plain versions."""
+    kernels = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = fa.flash_attention_fwd_plain
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
     try:
         yield
     finally:
-        ra.flash_attention_fwd = kernel
+        fa.flash_attention_fwd, fa.flash_attention_bwd = kernels
 
 
-def phase_path_vs_plain(fa, ra, tfm, dev):
+def launch_counts(fa):
+    return {"fwd": fa.launches, "dkv": fa.launches_dkv, "dq": fa.launches_dq}
+
+
+def reset_counts(fa):
+    fa.launches = fa.launches_dkv = fa.launches_dq = 0
+
+
+def phase_path_vs_plain(fa, tfm, dev):
     cfg = tfm.TransformerConfig(**dict(LLAMA2_7B, n_layers=2),
                                 dtype=torch.bfloat16)
     model = tfm.init_params(cfg, seed=1, device=dev)
@@ -229,7 +346,7 @@ def phase_path_vs_plain(fa, ra, tfm, dev):
         0, cfg.vocab, (MAX_BATCH, SEQ)).astype(np.int32)).to(dev)
     with torch.inference_mode():
         before = fa.launches
-        with plain_attention(ra, fa):
+        with plain_attention(fa):
             ref = fwd(model, tokens)
         plain_launches = fa.launches - before
         got = fwd(model, tokens)
@@ -324,6 +441,218 @@ def phase_serving(fa, tfm, serving):
             "max_memory_allocated": peak}
 
 
+BWD_CASES = [(2, SEQ, 32, 128, True, torch.bfloat16),   # training shape
+             (4, SEQ, 32, 128, True, torch.bfloat16),
+             (2, SEQ, 32, 128, False, torch.bfloat16),
+             (2, SEQ, 32, 64, True, torch.bfloat16),
+             (2, SEQ, 16, 256, True, torch.bfloat16),
+             (1, 256, 4, 128, True, torch.float32),
+             (1, 256, 2, 64, False, torch.float32),
+             (1, 256, 2, 256, True, torch.float32)]
+
+
+def sdpa_backward_ms(q, k, v, do, causal):
+    """The backward of F.scaled_dot_product_attention on the same
+    inputs, in its (B, H, L, D) layout: timed as a yardstick only."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal)
+    return time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 20)
+
+
+def phase_backward_vs_plain(fa, dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for i, (B, L, H, D, causal, dtype) in enumerate(BWD_CASES):
+        q, k, v, do = (torch.randn((B, L, H, D), generator=gen, device=dev,
+                                   dtype=torch.float32).to(dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        names = ("dq", "dk", "dv")
+        errs = {n: slice_rel_err(g, r) for n, g, r in zip(names, got, ref)}
+        tol = TOL_SLICE[dtype]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if not (finite and max(errs.values()) <= tol):
+            raise AssertionError(
+                f"flash_attention_bwd disagrees with its plain version at "
+                f"{(B, L, H, D)} causal={causal} {dtype}: worst (b, h) "
+                f"slice rel err {errs} (tol {tol}), finite={finite}")
+        case = {"shape": [B, L, H, D], "causal": causal,
+                "dtype": str(dtype).replace("torch.", ""),
+                "slice_rel_err": errs,
+                "max_abs_err": {n: max_abs_err(g, r)
+                                for n, g, r in zip(names, got, ref)}}
+        if i == 0:
+            faults = {name: grads_rel_err(bad, ref) for name, bad in
+                      planted_backward_faults(q, k, v, o, lse, do,
+                                              causal).items()}
+            if not all(err >= FAULT_MARGIN * tol for err in faults.values()):
+                raise AssertionError(
+                    f"the backward check (tol {tol}) does not reject "
+                    f"every planted fault by {FAULT_MARGIN}x: {faults}")
+            case["planted_fault_slice_rel_err"] = faults
+        if L == SEQ:
+            scale = D ** -0.5
+            di = fa.backward_di(o, do)
+            timed = {
+                "dkv": lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, di, causal, scale),
+                "dq": lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, do, lse, di, causal, scale),
+                "function": lambda: fa.flash_attention_bwd(
+                    q, k, v, o, lse, do, causal)}
+            for name, fn in timed.items():
+                bound_ms, bound_by, ops = attention_bound(
+                    B, L, H, D, causal, dtype, *BWD_WORK[name])
+                ms = time_ms(fn, 20)
+                case[name] = {"ms": ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by,
+                              "tflops": ops / (ms * 1e-3) / 1e12,
+                              "roofline_share": bound_ms / ms}
+            case["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     causal), 3, warmup=1)
+            case["library_ms"] = sdpa_backward_ms(q, k, v, do, causal)
+        log("phase 5: " + json.dumps(case))
+        out.append(case)
+        del q, k, v, do, o, lse, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_batch(cfg, seed):
+    """One fixed next-token batch from a seed, on the host: the step
+    moves it to the card."""
+    tokens = np.random.RandomState(seed).randint(
+        0, cfg.vocab, (TRAIN_BATCH, SEQ)).astype(np.int64)
+    return {"tokens": torch.from_numpy(tokens),
+            "targets": torch.from_numpy(np.roll(tokens, -1, axis=1))}
+
+
+def phase_training_path_vs_plain(fa, tfm, dev):
+    cfg = tfm.TransformerConfig(**dict(LLAMA2_7B, n_layers=2),
+                                dtype=torch.bfloat16)
+    model = tfm.init_params(cfg, seed=1, device=dev)
+    batch = {k: v.to(dev) for k, v in train_batch(cfg, seed=3).items()}
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(cfg, model, batch)
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone()
+                               for n, p in model.named_parameters()}
+
+    reset_counts(fa)
+    with plain_attention(fa):
+        loss_ref, ref = loss_and_grads()
+    plain_launches = launch_counts(fa)
+    loss1, got = loss_and_grads()
+    loss2, again = loss_and_grads()
+    torch.cuda.synchronize()
+    kernel_launches = launch_counts(fa)
+    want = {n: 2 * cfg.n_layers for n in kernel_launches}
+    if any(plain_launches.values()) or kernel_launches != want:
+        raise AssertionError(
+            f"phase 6: launches {plain_launches} on the plain path and "
+            f"{kernel_launches} on two kernel passes, want none and {want}")
+    errs = {n: rel_err(got[n], ref[n]) for n in ref}
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(float(loss1) - float(loss_ref)) / abs(float(loss_ref))
+    unequal = [n for n in got if not torch.equal(got[n], again[n])]
+    wq_norm = float(got["layers.0.wq"].float().norm())
+    result = {"loss": float(loss1), "loss_plain": float(loss_ref),
+              "loss_rel_err": loss_rel, "worst_grad": worst,
+              "worst_grad_rel_err": errs[worst],
+              "grad_rel_err": errs, "wq_grad_norm": wq_norm,
+              "bitwise_repeatable": not unequal and bool(
+                  torch.equal(loss1, loss2))}
+    log("phase 6: " + json.dumps(result))
+    problems = []
+    if not (errs[worst] <= TOL_GRAD and loss_rel <= TOL_LOSS):
+        problems.append(f"kernel path disagrees with the plain path "
+                        f"(tol {TOL_GRAD} per gradient, {TOL_LOSS} loss)")
+    if not (wq_norm > 0 and all(bool(torch.isfinite(g).all())
+                                for g in got.values())):
+        problems.append("wq gets no gradient or a gradient is not finite")
+    if not result["bitwise_repeatable"]:
+        problems.append(f"two backward passes differ in {unequal}")
+    if problems:
+        raise AssertionError("phase 6: " + "; ".join(problems))
+    del model, got, again, ref
+    torch.cuda.empty_cache()
+    return result
+
+
+def step_breakdown(tfm, cfg, model, optimizer, batch):
+    """One more step, the work of ``build_train_step``'s step written
+    out, with CUDA events between its parts: the layers' forward, the
+    LM head and loss, the backward, the AdamW update."""
+    batch = {k: v.to(model.embed.device) for k, v in batch.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    optimizer.zero_grad(set_to_none=True)
+    hidden, aux = tfm.forward(cfg, model, batch["tokens"])
+    ev[1].record()
+    nll = tfm.vocab_parallel_xent(cfg, tfm.logits_fn(cfg, model, hidden),
+                                  batch["targets"])
+    loss = nll.mean() + 0.01 * aux
+    ev[2].record()
+    loss.backward()
+    ev[3].record()
+    optimizer.step()
+    ev[4].record()
+    torch.cuda.synchronize()
+    parts = ("forward", "head_and_loss", "backward", "optimizer")
+    return {p: a.elapsed_time(b) for p, a, b in zip(parts, ev, ev[1:])}
+
+
+def phase_training(fa, tfm, train):
+    cfg = tfm.TransformerConfig(**dict(LLAMA2_7B, n_layers=TRAIN_LAYERS),
+                                dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    model = tfm.init_params(cfg, seed=0)            # on the card
+    optimizer = train.adamw(model.parameters(), LR)
+    step = train.build_train_step(
+        lambda m, b: tfm.loss_fn(cfg, m, b), optimizer)
+    batch = train_batch(cfg, seed=4)
+    reset_counts(fa)
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        losses.append(float(step(model, batch)["loss"]))  # waits
+        step_s.append(time.monotonic() - t0)
+    launches = launch_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    median_ms = 1e3 * statistics.median(step_s[1:])
+    result = {"n_parameters": sum(p.numel() for p in model.parameters()),
+              "losses": losses, "step_ms": [1e3 * t for t in step_s],
+              "median_step_ms": median_ms,
+              "tokens_per_s": TRAIN_BATCH * SEQ / (median_ms * 1e-3),
+              "max_memory_allocated": peak, "launches": launches,
+              "breakdown_ms": step_breakdown(tfm, cfg, model, optimizer,
+                                             batch)}
+    log("phase 7: " + json.dumps(result))
+    want = TRAIN_LAYERS * TRAIN_STEPS
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        problems.append("the loss did not fall")
+    if any(n != want for n in launches.values()):
+        problems.append(f"launches {launches}, want {want} of each")
+    if problems:
+        raise AssertionError("phase 7: " + "; ".join(problems))
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -332,7 +661,7 @@ def main():
     from horovod_tpu_torch import serving
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import flash_attention as fa
-    from horovod_tpu_torch.parallel import ring_attention as ra
+    from horovod_tpu_torch.parallel import train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -341,27 +670,33 @@ def main():
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.monotonic()
-    fa.build(verbose=True)
-    fa.load_library()
-    log(f"phase 1: built {os.path.relpath(fa.library_path(), REPO)} in "
-        f"{time.monotonic() - t0:.1f} s")
+    paths = fa.build(verbose=True)
+    for name in paths:
+        fa.load_library(name)
+    log(f"phase 1: built {[os.path.relpath(p, REPO) for p in paths.values()]}"
+        f" in {time.monotonic() - t0:.1f} s")
 
     cases = phase_kernel_vs_plain(fa, dev)
     log("phase 2: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
         text=True, timeout=60).stdout.strip())
-    path = phase_path_vs_plain(fa, ra, tfm, dev)
+    path = phase_path_vs_plain(fa, tfm, dev)
     served = phase_serving(fa, tfm, serving)
+    bwd_cases = phase_backward_vs_plain(fa, dev)
+    train_path = phase_training_path_vs_plain(fa, tfm, dev)
+    trained = phase_training(fa, tfm, train)
 
     main_case = cases[0]                     # (4, 2048, 32, 128) causal
-    kernel = {
+    bwd_case = bwd_cases[0]                  # (2, 2048, 32, 128) causal
+    per_step = {n: c // TRAIN_STEPS for n, c in trained["launches"].items()}
+    forward = {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "horovod_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "horovod_tpu/parallel/ring_attention.py:163",
-        "launches": served["launches"],
-        "launches_per_batch": served["launches_per_batch"],
+        "launches": trained["launches"]["fwd"],
+        "launches_per_step": per_step["fwd"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -375,7 +710,34 @@ def main():
         "serving": served,
         "card": card,
     }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    backward = []
+    for name, key, outs, line in (
+            ("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), 796),
+            ("flash_attention_bwd_dq", "dq", ("dq",), 1146)):
+        backward.append({
+            "name": name,
+            "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"jax/experimental/pallas/ops/tpu/"
+                        f"flash_attention.py:{line}",
+            "reached_from": "horovod_tpu/parallel/ring_attention.py:163",
+            "launches": trained["launches"][key],
+            "launches_per_step": per_step[key],
+            "max_abs_err": max(bwd_case["max_abs_err"][o] for o in outs),
+            "slice_rel_err": max(bwd_case["slice_rel_err"][o] for o in outs),
+            "ms": bwd_case[key]["ms"],
+            "plain_ms": bwd_case["plain_ms"],
+            "bound_ms": bwd_case[key]["bound_ms"],
+            "bound_by": bwd_case[key]["bound_by"],
+            "library_ms": bwd_case["library_ms"],
+            "shape": bwd_case["shape"],
+            "tflops": bwd_case[key]["tflops"],
+            "card": card,
+        })
+    backward[0].update(cases=bwd_cases, training_path_vs_plain=train_path,
+                       training=trained,
+                       function=bwd_case["function"])
+    print(json.dumps({"kernels": [forward, *backward]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

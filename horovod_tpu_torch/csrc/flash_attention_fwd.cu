@@ -4,8 +4,9 @@
 // Replaces: the TPU kernel behind horovod_tpu/parallel/ring_attention.py
 // `flash_attention_path` (l.163), i.e. the forward of
 // jax.experimental.pallas.ops.tpu.flash_attention.flash_attention
-// (`_flash_attention_kernel`). Its dQ and dK/dV backward kernels are
-// not ported here.
+// (`_flash_attention_kernel`). Its dK/dV and dQ backward kernels are
+// in flash_attention_bwd.cu; the building blocks both files use are in
+// flash_common.cuh.
 //
 // Function: o = softmax(scale * q k^T [+ causal mask]) v and
 // lse = logsumexp of the scaled, masked scores, per (b, h, query row).
@@ -31,10 +32,12 @@
 // kernel (CUDA cores, exact f32 arithmetic) for tests against the plain
 // PyTorch version; no served path runs it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
+
+using namespace hvd_flash;
 
 namespace {
 
@@ -42,64 +45,6 @@ constexpr int kBlockM = 64;   // query rows per CTA, 16 per warp
 constexpr int kBlockN = 64;   // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 of row padding: conflict-free fragment loads
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0,
-                                          uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_float2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows x D tile from global (row stride in elements, head dim
-// contiguous) into shared memory with row stride D + kPad.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          int64_t row_stride, int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    cp_async16(s + r * (D + kPad) + c, g + r * row_stride + c);
-  }
-}
 
 struct Strides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh;
@@ -131,7 +76,7 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* kg = k + b * st.kb + h * st.kh;
   const bf16* vg = v + b * st.vb + h * st.vh;
 
-  load_tile<D>(q_s, qg, st.ql, kBlockM);
+  load_tile<D, kThreads>(q_s, qg, st.ql, kBlockM);
   cp_async_commit();
 
   float acc[D / 8][4];
@@ -146,11 +91,11 @@ __global__ void __launch_bounds__(kThreads)
   const int wrow = warp * 16;
   for (int j = 0; j < n_tiles; ++j) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(k_s, kg + static_cast<int64_t>(j) * kBlockN * st.kl, st.kl,
-                 kBlockN);
+    load_tile<D, kThreads>(
+        k_s, kg + static_cast<int64_t>(j) * kBlockN * st.kl, st.kl, kBlockN);
     cp_async_commit();
-    load_tile<D>(v_s, vg + static_cast<int64_t>(j) * kBlockN * st.vl, st.vl,
-                 kBlockN);
+    load_tile<D, kThreads>(
+        v_s, vg + static_cast<int64_t>(j) * kBlockN * st.vl, st.vl, kBlockN);
     cp_async_commit();
     cp_async_wait<1>();  // Q and K have landed; V may be in flight
     __syncthreads();

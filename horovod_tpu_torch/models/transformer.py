@@ -3,29 +3,36 @@
 device.
 
 Port scope: every strategy axis off (no tensor, sequence or expert
-parallelism) and the dense SwiGLU FFN only; the MoE FFN, remat and the
-vocab-parallel loss are not ported yet. The functions keep the JAX
-module's names and math: ``rmsnorm`` and ``_rope`` compute in float32
-and cast back, norm weights stay float32 in a bfloat16 model, the LM
-head is tied to the embedding and returns float32 logits, attention
-goes through ``parallel.ring_attention.attention`` (and so, on the
-card, through the flash kernel).
+parallelism) and the dense SwiGLU FFN only; the MoE FFN and the
+vocab-sharded (tp > 1) loss are not ported yet. The functions keep the
+JAX module's names and math: ``rmsnorm`` and ``_rope`` compute in
+float32 and cast back, norm weights stay float32 in a bfloat16 model,
+the LM head is tied to the embedding and returns float32 logits,
+attention goes through ``parallel.ring_attention.attention`` (and so,
+on the card, through the flash kernels, forward and backward),
+``loss_fn`` is the mean next-token cross-entropy plus 0.01 times the
+aux loss, and ``cfg.remat`` recomputes each layer (``"full"``) or only
+its FFN (``"mlp_only"``) in the backward with ``torch.utils.checkpoint``,
+as ``jax.checkpoint`` does in the JAX ``forward``.
 
 Weights: ``init_params`` draws them on the device from a seeded
 ``torch.Generator`` with the JAX init scales; ``params_from_jax``
-carries a JAX parameter tree across. Linear weights are stored the
-``nn.Linear`` way, (out, in): the transpose of JAX's (in, out).
+carries a JAX parameter tree across and ``params_to_jax`` carries
+parameters (or their gradients) back in the JAX layout. Linear weights
+are stored the ``nn.Linear`` way, (out, in): the transpose of JAX's
+(in, out).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..common.device import DeviceLike, resolve_device
 from ..parallel.ring_attention import attention as full_attention
@@ -43,6 +50,12 @@ class TransformerConfig:
     max_seq: int = 2048
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    # Recompute each layer in the backward (the JAX config's remat):
+    # "full" reruns the whole layer, attention's forward kernel
+    # included; "mlp_only" keeps the attention sub-block's saved tensors
+    # (so its forward kernel runs once) and reruns only the FFN.
+    remat: bool = False
+    remat_mode: str = "full"
 
 
 # Linear weight name -> (out, in) shape, per layer.
@@ -160,6 +173,36 @@ def params_from_jax(cfg: TransformerConfig, named: Dict[str, np.ndarray],
     return model
 
 
+def params_to_jax(cfg: TransformerConfig,
+                  tensors: Union[nn.Module, Mapping[str, torch.Tensor]]
+                  ) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax``: the JAX package's leaf names
+    mapped to numpy arrays, layers stacked on a leading axis, linear
+    weights (in, out). ``tensors`` is a Transformer (its parameters) or
+    a mapping from its parameter names (``named_parameters()``, e.g.
+    ``"layers.0.wq"``) to tensors, such as ``{name: p.grad}`` for the
+    gradients in the JAX layout. bfloat16 comes back as float32, which
+    holds it exactly (numpy has no bfloat16)."""
+    if isinstance(tensors, nn.Module):
+        tensors = dict(tensors.named_parameters())
+
+    def host(name: str) -> np.ndarray:
+        t = tensors.get(name)
+        if t is None:
+            raise ValueError(f"params_to_jax: no tensor for {name} (a "
+                             f"parameter without a gradient?)")
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    out = {"['embed']": host("embed"), "['final_norm']": host("final_norm")}
+    for name in ("attn_norm", "mlp_norm", *_layer_shapes(cfg)):
+        per_layer = [host(f"layers.{i}.{name}") for i in range(cfg.n_layers)]
+        if "norm" not in name:
+            per_layer = [a.T for a in per_layer]
+        out[f"['layers']['{name}']"] = np.stack(per_layer)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Building blocks (same names and math as the JAX module)
 
@@ -221,13 +264,27 @@ def embed_lookup(cfg: TransformerConfig, embed: torch.Tensor,
     return F.embedding(tokens, embed)
 
 
+def _one_layer(cfg: TransformerConfig, layer: Block,
+               x: torch.Tensor) -> torch.Tensor:
+    """One layer, recomputed in the backward as ``cfg.remat`` says."""
+    if not cfg.remat:
+        return layer(x)
+    if cfg.remat_mode == "mlp_only":
+        x = _attention_block(cfg, layer, x)
+        return checkpoint(_dense_ffn, cfg, layer, x, use_reentrant=False)
+    return checkpoint(layer, x, use_reentrant=False)
+
+
 def forward(cfg: TransformerConfig, params: Transformer,
             tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, L) -> hidden states (B, L, D) and the MoE aux loss
     (always zero: the dense FFN has none)."""
+    if cfg.remat and cfg.remat_mode not in ("full", "mlp_only"):
+        raise ValueError(f"remat_mode must be 'full' or 'mlp_only', got "
+                         f"{cfg.remat_mode!r}")
     x = embed_lookup(cfg, params.embed, tokens)
     for layer in params.layers:
-        x = layer(x)
+        x = _one_layer(cfg, layer, x)
     x = rmsnorm(x, params.final_norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -240,3 +297,29 @@ def logits_fn(cfg: TransformerConfig, params: Transformer,
     h = hidden.to(cfg.dtype).float()
     e = params.embed.to(cfg.dtype).float()
     return torch.einsum("bld,vd->blv", h, e)
+
+
+def vocab_parallel_xent(cfg: TransformerConfig, logits: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy, float32: the JAX function's ``tp == 1``
+    branch (log-sum-exp minus the target's logit). Logits that hold
+    only a shard of the vocabulary (tensor parallelism) raise
+    NotImplementedError: that is a later slice of the port."""
+    if logits.shape[-1] != cfg.vocab:
+        raise NotImplementedError(
+            f"vocab_parallel_xent: logits hold {logits.shape[-1]} of "
+            f"{cfg.vocab} vocabulary entries; the vocab-sharded (tensor "
+            f"parallel) loss is not ported yet (ROADMAP A.5)")
+    lf = logits.float()
+    tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - tgt
+
+
+def loss_fn(cfg: TransformerConfig, params: Transformer,
+            batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token loss, mean over the batch: ``batch`` holds tokens and
+    targets, both (B, L)."""
+    hidden, aux = forward(cfg, params, batch["tokens"])
+    logits = logits_fn(cfg, params, hidden)
+    nll = vocab_parallel_xent(cfg, logits, batch["targets"])
+    return nll.mean() + 0.01 * aux

@@ -20,6 +20,7 @@ import pytest
 import torch
 from jax.experimental.pallas.ops.tpu import flash_attention as jfa
 
+import chip_smoke
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import ring_attention as tra
 
@@ -155,3 +156,108 @@ def test_cpu_attention_takes_shapes_the_kernel_does_not(monkeypatch):
     assert fa.launches == before
     _assert_close(got, jra.attention(*(jnp.asarray(a) for a in arrs)),
                   TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# Backward. Measure: chip_smoke's worst (b, h) slice relative error (the
+# Frobenius norm of the error over that of the reference, per (b, h)
+# slice of dq, dk and dv). Tolerances: float32 1e-5 (summation order
+# only); bfloat16 1e-2 (both sides compute in float32 from the same bf16
+# inputs and round the gradients to bf16; the plain version takes di
+# from the bf16 o, the JAX VJP from its float32 softmax).
+
+BWD_L = 256
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _bwd_inputs(dtype, D, seed):
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(B, BWD_L, H, D).astype(np.float32) for _ in range(4)]
+    jx = [jnp.asarray(a, JNP[dtype]) for a in arrs]
+    tx = [torch.from_numpy(a).to(TORCH[dtype]) for a in arrs]
+    return jx, tx
+
+
+def _swap(x):
+    return jnp.swapaxes(x, 1, 2)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_jax_vjp_and_library_reference(
+        dtype, causal, D, monkeypatch):
+    monkeypatch.delenv("HOROVOD_FLASH_ATTENTION", raising=False)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _bwd_inputs(dtype, D, seed=3)
+    o, lse = fa.flash_attention_fwd_plain(tq, tk, tv, causal)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal)
+    assert all(g.dtype == TORCH[dtype] and g.shape == tq.shape for g in got)
+
+    _, vjp = jax.vjp(lambda q, k, v: jra.attention(q, k, v, causal=causal),
+                     jq, jk, jv)
+    ref = [_np(r) for r in vjp(jdo)]
+    assert chip_smoke.grads_rel_err(got, ref) <= BWD_TOL[dtype]
+
+    # mha_reference_bwd takes sm_scale == 1 only: give it q * scale,
+    # m = lse and l = 1 (so p = exp(s - lse)), and scale dq back.
+    scale = D ** -0.5
+    jo = jnp.asarray(_np(o), JNP[dtype])
+    jlse = jnp.asarray(lse.numpy())
+    dq, dk, dv, _ = jfa.mha_reference_bwd(
+        _swap(jnp.asarray(_np(tq)) * scale), _swap(jk), _swap(jv), None,
+        None, _swap(jo), jnp.ones_like(jlse), jlse, _swap(jdo),
+        causal=causal)
+    lib = [_np(_swap(dq)) * scale, _np(_swap(dk)), _np(_swap(dv))]
+    assert chip_smoke.grads_rel_err(got, lib) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_gradient_is_the_flash_backward(dtype, causal):
+    """attention() is one autograd node, FlashAttention's, on every
+    device: its gradient on the CPU is the plain backward's, bit for
+    bit."""
+    _, (tq, tk, tv, tdo) = _bwd_inputs(dtype, 64, seed=4)
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    out = tra.attention(q, k, v, causal=causal)
+    assert isinstance(out.grad_fn, fa.FlashAttention._backward_cls)
+    out.backward(tdo)
+    o, lse = fa.flash_attention_fwd_plain(tq, tk, tv, causal)
+    ref = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal)
+    for got, want in zip((q.grad, k.grad, v.grad), ref):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["o_dtype", "do_shape", "lse_dtype",
+                                 "lse_shape", "head_dim"])
+def test_backward_checks_its_inputs_before_launch(bad):
+    _, (q, k, v, do) = _bwd_inputs("float32", 64, seed=5)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    if bad == "o_dtype":
+        o = o.to(torch.bfloat16)
+    elif bad == "do_shape":
+        do = do[:, :128]
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    elif bad == "lse_shape":
+        lse = lse.transpose(1, 2)
+    else:
+        q, k, v, o, do = (x[..., :48] for x in (q, k, v, o, do))
+    before = (fa.launches_dkv, fa.launches_dq)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    assert (fa.launches_dkv, fa.launches_dq) == before
+
+
+def test_backward_on_the_cpu_is_the_plain_version():
+    _, (q, k, v, do) = _bwd_inputs("float32", 64, seed=6)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    before = (fa.launches_dkv, fa.launches_dq)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    assert (fa.launches_dkv, fa.launches_dq) == before
+    for g, r in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      True)):
+        assert torch.equal(g, r)
+    meta = [x.to("meta") for x in (q, k, v, o, lse, do)]
+    with pytest.raises(ValueError, match="neither CPU nor CUDA"):
+        fa.flash_attention_bwd(*meta)
