@@ -17,7 +17,10 @@
 //   dQ kernel:    dQ = scale * dS k.
 // q, k, v and dO are (B, L, H, D) with the head dim contiguous and any
 // other strides; lse and di are (B, H, L) float32, contiguous; dq, dk and
-// dv are written contiguous in the inputs' dtype.
+// dv are written contiguous in the inputs' dtype. Any L >= 1: the last
+// query and key tiles may be ragged; their missing rows are zero-filled
+// in shared memory, P is zero for queries or keys at or past L, and rows
+// at or past L are not stored.
 //
 // What bounds it on an H100: at the training shape (L = 2048, D = 128)
 // dK/dV does four products (8*D operations per visible (query, key)
@@ -43,7 +46,8 @@
 // group accumulating half of dK and dV (the two scores products are then
 // computed by both groups).
 //
-// bf16 is the trained type. The float32 entry points are plain scalar
+// bf16 is the trained type; f16 runs the same kernels with the f16 form
+// of the tensor-core product. The float32 entry points are plain scalar
 // kernels (CUDA cores, f32 arithmetic) for tests against the plain
 // PyTorch version; no training path runs them.
 
@@ -69,26 +73,25 @@ template <int D>
 constexpr int kDkvSplit = D == 256 ? 2 : 1;
 
 // ---------------------------------------------------------------------------
-// dK/dV, bf16: one CTA per (key tile, h, b); each group of four warps holds
-// the tile's 64 keys, 16 per warp, and walks the query tiles.
+// dK/dV, bf16 or f16 (T): one CTA per (key tile, h, b); each group of four
+// warps holds the tile's 64 keys, 16 per warp, and walks the query tiles.
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(128 * kDkvSplit<D>)
-    flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ di, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int L, int H, Strides st,
-                       float scale, float scale_log2) {
+    flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di, T* __restrict__ dk,
+                      T* __restrict__ dv, int L, int H, Strides st,
+                      float scale, float scale_log2) {
   constexpr int kThreads = 128 * kDkvSplit<D>;
   constexpr int kDw = D / kDkvSplit<D>;  // head-dim columns per warp
   constexpr int kS = D + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kBlockN * kS;
-  bf16* q_s = v_s + kBlockN * kS;
-  bf16* do_s = q_s + kBlockM * kS;
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + kBlockN * kS;
+  T* q_s = v_s + kBlockN * kS;
+  T* do_s = q_s + kBlockM * kS;
   float* lse_s = reinterpret_cast<float*>(do_s + kBlockM * kS);
   float* di_s = lse_s + kBlockM;
 
@@ -105,13 +108,13 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
   const int k0 = k_tile * kBlockN;
 
   load_tile<D, kThreads>(k_s, k + b * st.kb + k0 * st.kl + h * st.kh, st.kl,
-                         kBlockN);
+                         kBlockN, L - k0);
   load_tile<D, kThreads>(v_s, v + b * st.vb + k0 * st.vl + h * st.vh, st.vl,
-                         kBlockN);
+                         kBlockN, L - k0);
   cp_async_commit();
 
-  const bf16* qg = q + b * st.qb + h * st.qh;
-  const bf16* dg = dout + b * st.db + h * st.dh;
+  const T* qg = q + b * st.qb + h * st.qh;
+  const T* dg = dout + b * st.db + h * st.dh;
   const float* lse_bh = lse + (static_cast<int64_t>(b) * H + h) * L;
   const float* di_bh = di + (static_cast<int64_t>(b) * H + h) * L;
 
@@ -123,17 +126,18 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
     dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
   }
 
-  const int n_q_tiles = L / kBlockM;
+  const int n_q_tiles = (L + kBlockM - 1) / kBlockM;
   for (int i = kCausal ? k_tile : 0; i < n_q_tiles; ++i) {
     const int q0 = i * kBlockM;
     __syncthreads();  // every warp is done with the previous Q/dO tile
     load_tile<D, kThreads>(q_s, qg + static_cast<int64_t>(q0) * st.ql, st.ql,
-                           kBlockM);
-    load_floats(lse_s, lse_bh + q0, kBlockM);
+                           kBlockM, L - q0);
+    // A query past L gets lse = +inf, so its P is exactly zero.
+    load_floats(lse_s, lse_bh + q0, kBlockM, L - q0, INFINITY);
     cp_async_commit();
     load_tile<D, kThreads>(do_s, dg + static_cast<int64_t>(q0) * st.dl, st.dl,
-                           kBlockM);
-    load_floats(di_s, di_bh + q0, kBlockM);
+                           kBlockM, L - q0);
+    load_floats(di_s, di_bh + q0, kBlockM, L - q0, 0.f);
     cp_async_commit();
     cp_async_wait<1>();  // K, V, Q and lse have landed; dO may be in flight
     __syncthreads();
@@ -145,18 +149,19 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
       p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      const bf16* ka = k_s + (krow + g) * kS + kd * 16 + 2 * t;
+      const T* ka = k_s + (krow + g) * kS + kd * 16 + 2 * t;
       const uint32_t a0 = ld_pair(ka);
       const uint32_t a1 = ld_pair(ka + 8 * kS);
       const uint32_t a2 = ld_pair(ka + 8);
       const uint32_t a3 = ld_pair(ka + 8 * kS + 8);
 #pragma unroll
       for (int n = 0; n < kBlockM / 8; ++n) {
-        const bf16* qb = q_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816(p[n], a0, a1, a2, a3, ld_pair(qb), ld_pair(qb + 8));
+        const T* qb = q_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
+        mma_16816<T>(p[n], a0, a1, a2, a3, ld_pair(qb), ld_pair(qb + 8));
       }
     }
-    // P^T = exp(scale S^T - lse[query]), zero above the diagonal.
+    // P^T = exp(scale S^T - lse[query]), zero above the diagonal and for
+    // queries past L.
     const bool diag = kCausal && i == k_tile;
 #pragma unroll
     for (int n = 0; n < kBlockM / 8; ++n) {
@@ -166,7 +171,7 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
         const int row = krow + g + (e >= 2 ? 8 : 0);  // key in the tile
         const float x = exp2f(fmaf(p[n][e], scale_log2,
                                    -lse_s[col] * kLog2e));
-        p[n][e] = (diag && row > col) ? 0.f : x;
+        p[n][e] = ((diag && row > col) || q0 + col >= L) ? 0.f : x;
       }
     }
 
@@ -176,16 +181,16 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
     // dV += P^T dO.
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      const uint32_t a0 = pack_float2(p[2 * kk][0], p[2 * kk][1]);
-      const uint32_t a1 = pack_float2(p[2 * kk][2], p[2 * kk][3]);
-      const uint32_t a2 = pack_float2(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      const uint32_t a3 = pack_float2(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      const bf16* ob = do_s + (kk * 16 + 2 * t) * kS + d0 + g;
+      const uint32_t a0 = pack_float2<T>(p[2 * kk][0], p[2 * kk][1]);
+      const uint32_t a1 = pack_float2<T>(p[2 * kk][2], p[2 * kk][3]);
+      const uint32_t a2 = pack_float2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+      const uint32_t a3 = pack_float2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+      const T* ob = do_s + (kk * 16 + 2 * t) * kS + d0 + g;
 #pragma unroll
       for (int dt = 0; dt < kDw / 8; ++dt) {
-        const bf16* x = ob + dt * 8;
-        mma_16816(dv_acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
-                  pack_pair(x[8 * kS], x[9 * kS]));
+        const T* x = ob + dt * 8;
+        mma_16816<T>(dv_acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
+                     pack_pair(x[8 * kS], x[9 * kS]));
       }
     }
 
@@ -196,15 +201,15 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
       ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      const bf16* va = v_s + (krow + g) * kS + kd * 16 + 2 * t;
+      const T* va = v_s + (krow + g) * kS + kd * 16 + 2 * t;
       const uint32_t a0 = ld_pair(va);
       const uint32_t a1 = ld_pair(va + 8 * kS);
       const uint32_t a2 = ld_pair(va + 8);
       const uint32_t a3 = ld_pair(va + 8 * kS + 8);
 #pragma unroll
       for (int n = 0; n < kBlockM / 8; ++n) {
-        const bf16* ob = do_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816(ds[n], a0, a1, a2, a3, ld_pair(ob), ld_pair(ob + 8));
+        const T* ob = do_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
+        mma_16816<T>(ds[n], a0, a1, a2, a3, ld_pair(ob), ld_pair(ob + 8));
       }
     }
 #pragma unroll
@@ -217,16 +222,16 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
     // dK += dS^T Q (scaled once at the end).
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      const uint32_t a0 = pack_float2(ds[2 * kk][0], ds[2 * kk][1]);
-      const uint32_t a1 = pack_float2(ds[2 * kk][2], ds[2 * kk][3]);
-      const uint32_t a2 = pack_float2(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-      const uint32_t a3 = pack_float2(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
-      const bf16* qb = q_s + (kk * 16 + 2 * t) * kS + d0 + g;
+      const uint32_t a0 = pack_float2<T>(ds[2 * kk][0], ds[2 * kk][1]);
+      const uint32_t a1 = pack_float2<T>(ds[2 * kk][2], ds[2 * kk][3]);
+      const uint32_t a2 = pack_float2<T>(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
+      const uint32_t a3 = pack_float2<T>(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
+      const T* qb = q_s + (kk * 16 + 2 * t) * kS + d0 + g;
 #pragma unroll
       for (int dt = 0; dt < kDw / 8; ++dt) {
-        const bf16* x = qb + dt * 8;
-        mma_16816(dk_acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
-                  pack_pair(x[8 * kS], x[9 * kS]));
+        const T* x = qb + dt * 8;
+        mma_16816<T>(dk_acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
+                     pack_pair(x[8 * kS], x[9 * kS]));
       }
     }
   }
@@ -240,38 +245,40 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
 #pragma unroll
   for (int dt = 0; dt < kDw / 8; ++dt) {
     const int c = d0 + dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dk + o0 + c) =
-        pack_float2(dk_acc[dt][0] * scale, dk_acc[dt][1] * scale);
-    *reinterpret_cast<uint32_t*>(dk + o1 + c) =
-        pack_float2(dk_acc[dt][2] * scale, dk_acc[dt][3] * scale);
-    *reinterpret_cast<uint32_t*>(dv + o0 + c) =
-        pack_float2(dv_acc[dt][0], dv_acc[dt][1]);
-    *reinterpret_cast<uint32_t*>(dv + o1 + c) =
-        pack_float2(dv_acc[dt][2], dv_acc[dt][3]);
+    if (r0 < L) {
+      *reinterpret_cast<uint32_t*>(dk + o0 + c) =
+          pack_float2<T>(dk_acc[dt][0] * scale, dk_acc[dt][1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + o0 + c) =
+          pack_float2<T>(dv_acc[dt][0], dv_acc[dt][1]);
+    }
+    if (r1 < L) {
+      *reinterpret_cast<uint32_t*>(dk + o1 + c) =
+          pack_float2<T>(dk_acc[dt][2] * scale, dk_acc[dt][3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + o1 + c) =
+          pack_float2<T>(dv_acc[dt][2], dv_acc[dt][3]);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dQ, bf16: one CTA per (query tile, h, b), 16 queries per warp, walking
-// the key tiles up to the diagonal.
+// dQ, bf16 or f16 (T): one CTA per (query tile, h, b), 16 queries per warp,
+// walking the key tiles up to the diagonal.
 
 constexpr int kDqThreads = 128;
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kDqThreads)
-    flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ di, bf16* __restrict__ dq,
-                      int L, int H, Strides st, float scale,
-                      float scale_log2) {
+    flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di, T* __restrict__ dq, int L,
+                     int H, Strides st, float scale, float scale_log2) {
   constexpr int kS = D + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kBlockM * kS;
-  bf16* k_s = do_s + kBlockM * kS;
-  bf16* v_s = k_s + kBlockN * kS;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* do_s = q_s + kBlockM * kS;
+  T* k_s = do_s + kBlockM * kS;
+  T* v_s = k_s + kBlockN * kS;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -285,34 +292,36 @@ __global__ void __launch_bounds__(kDqThreads)
   const int wrow = warp * 16;
 
   load_tile<D, kDqThreads>(q_s, q + b * st.qb + q0 * st.ql + h * st.qh,
-                           st.ql, kBlockM);
+                           st.ql, kBlockM, L - q0);
   load_tile<D, kDqThreads>(do_s, dout + b * st.db + q0 * st.dl + h * st.dh,
-                           st.dl, kBlockM);
+                           st.dl, kBlockM, L - q0);
   cp_async_commit();
 
   const int r0 = q0 + wrow + g;
   const int r1 = r0 + 8;
   const int64_t bh = (static_cast<int64_t>(b) * H + h) * L;
-  const float lse0 = lse[bh + r0] * kLog2e;
-  const float lse1 = lse[bh + r1] * kLog2e;
-  const float di0 = di[bh + r0];
-  const float di1 = di[bh + r1];
-  const bf16* kg = k + b * st.kb + h * st.kh;
-  const bf16* vg = v + b * st.vb + h * st.vh;
+  // Rows past L compute on zeros and are not stored.
+  const float lse0 = r0 < L ? lse[bh + r0] * kLog2e : 0.f;
+  const float lse1 = r1 < L ? lse[bh + r1] * kLog2e : 0.f;
+  const float di0 = r0 < L ? di[bh + r0] : 0.f;
+  const float di1 = r1 < L ? di[bh + r1] : 0.f;
+  const T* kg = k + b * st.kb + h * st.kh;
+  const T* vg = v + b * st.vb + h * st.vh;
 
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  const int n_tiles = kCausal ? q_tile + 1 : L / kBlockN;
+  const int n_tiles = kCausal ? q_tile + 1 : (L + kBlockN - 1) / kBlockN;
   for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<D, kDqThreads>(
-        k_s, kg + static_cast<int64_t>(j) * kBlockN * st.kl, st.kl, kBlockN);
+        k_s, kg + static_cast<int64_t>(k0) * st.kl, st.kl, kBlockN, L - k0);
     cp_async_commit();
     load_tile<D, kDqThreads>(
-        v_s, vg + static_cast<int64_t>(j) * kBlockN * st.vl, st.vl, kBlockN);
+        v_s, vg + static_cast<int64_t>(k0) * st.vl, st.vl, kBlockN, L - k0);
     cp_async_commit();
     cp_async_wait<1>();  // Q, dO and K have landed; V may be in flight
     __syncthreads();
@@ -324,15 +333,15 @@ __global__ void __launch_bounds__(kDqThreads)
       p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      const bf16* qa = q_s + (wrow + g) * kS + kd * 16 + 2 * t;
+      const T* qa = q_s + (wrow + g) * kS + kd * 16 + 2 * t;
       const uint32_t a0 = ld_pair(qa);
       const uint32_t a1 = ld_pair(qa + 8 * kS);
       const uint32_t a2 = ld_pair(qa + 8);
       const uint32_t a3 = ld_pair(qa + 8 * kS + 8);
 #pragma unroll
       for (int n = 0; n < kBlockN / 8; ++n) {
-        const bf16* kb = k_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816(p[n], a0, a1, a2, a3, ld_pair(kb), ld_pair(kb + 8));
+        const T* kb = k_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
+        mma_16816<T>(p[n], a0, a1, a2, a3, ld_pair(kb), ld_pair(kb + 8));
       }
     }
     const bool diag = kCausal && j == q_tile;
@@ -344,7 +353,7 @@ __global__ void __launch_bounds__(kDqThreads)
         const int row = wrow + g + (e >= 2 ? 8 : 0);
         const float x =
             exp2f(fmaf(p[n][e], scale_log2, e >= 2 ? -lse1 : -lse0));
-        p[n][e] = (diag && key > row) ? 0.f : x;
+        p[n][e] = ((diag && key > row) || k0 + key >= L) ? 0.f : x;
       }
     }
 
@@ -358,15 +367,15 @@ __global__ void __launch_bounds__(kDqThreads)
       ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      const bf16* oa = do_s + (wrow + g) * kS + kd * 16 + 2 * t;
+      const T* oa = do_s + (wrow + g) * kS + kd * 16 + 2 * t;
       const uint32_t a0 = ld_pair(oa);
       const uint32_t a1 = ld_pair(oa + 8 * kS);
       const uint32_t a2 = ld_pair(oa + 8);
       const uint32_t a3 = ld_pair(oa + 8 * kS + 8);
 #pragma unroll
       for (int n = 0; n < kBlockN / 8; ++n) {
-        const bf16* vb = v_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816(ds[n], a0, a1, a2, a3, ld_pair(vb), ld_pair(vb + 8));
+        const T* vb = v_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
+        mma_16816<T>(ds[n], a0, a1, a2, a3, ld_pair(vb), ld_pair(vb + 8));
       }
     }
 #pragma unroll
@@ -380,37 +389,41 @@ __global__ void __launch_bounds__(kDqThreads)
     // dQ += dS K (scaled once at the end).
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a0 = pack_float2(ds[2 * kk][0], ds[2 * kk][1]);
-      const uint32_t a1 = pack_float2(ds[2 * kk][2], ds[2 * kk][3]);
-      const uint32_t a2 = pack_float2(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-      const uint32_t a3 = pack_float2(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
-      const bf16* kb = k_s + (kk * 16 + 2 * t) * kS + g;
+      const uint32_t a0 = pack_float2<T>(ds[2 * kk][0], ds[2 * kk][1]);
+      const uint32_t a1 = pack_float2<T>(ds[2 * kk][2], ds[2 * kk][3]);
+      const uint32_t a2 = pack_float2<T>(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
+      const uint32_t a3 = pack_float2<T>(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
+      const T* kb = k_s + (kk * 16 + 2 * t) * kS + g;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* x = kb + dt * 8;
-        mma_16816(acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
-                  pack_pair(x[8 * kS], x[9 * kS]));
+        const T* x = kb + dt * 8;
+        mma_16816<T>(acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
+                     pack_pair(x[8 * kS], x[9 * kS]));
       }
     }
   }
 
-  bf16* o0 = dq + (static_cast<int64_t>(b) * L + r0) * H * D +
-             static_cast<int64_t>(h) * D;
-  bf16* o1 = dq + (static_cast<int64_t>(b) * L + r1) * H * D +
-             static_cast<int64_t>(h) * D;
+  T* o0 = dq + (static_cast<int64_t>(b) * L + r0) * H * D +
+          static_cast<int64_t>(h) * D;
+  T* o1 = dq + (static_cast<int64_t>(b) * L + r1) * H * D +
+          static_cast<int64_t>(h) * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(o0 + c) =
-        pack_float2(acc[dt][0] * scale, acc[dt][1] * scale);
-    *reinterpret_cast<uint32_t*>(o1 + c) =
-        pack_float2(acc[dt][2] * scale, acc[dt][3] * scale);
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(o0 + c) =
+          pack_float2<T>(acc[dt][0] * scale, acc[dt][1] * scale);
+    if (r1 < L)
+      *reinterpret_cast<uint32_t*>(o1 + c) =
+          pack_float2<T>(acc[dt][2] * scale, acc[dt][3] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
 // float32: one thread per key row (dK/dV) or query row (dQ), the other
-// side streamed through static shared memory kRowTile rows at a time.
+// side streamed through static shared memory kRowTile rows at a time
+// (rows past L zero-filled; a thread whose row is past L computes on
+// zeros and stores nothing).
 
 constexpr int kRowTile = 16;
 constexpr int kF32Threads = 64;  // rows per CTA, = kBlockM
@@ -432,28 +445,32 @@ __global__ void __launch_bounds__(kF32Threads)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int key = k_tile * kF32Threads + threadIdx.x;
+  const bool live = key < L;
   const float* kr = k + b * st.kb + static_cast<int64_t>(key) * st.kl + h * st.kh;
   const float* vr = v + b * st.vb + static_cast<int64_t>(key) * st.vl + h * st.vh;
   const int64_t bh = (static_cast<int64_t>(b) * H + h) * L;
   float kv[D], vv[D], dkv[D], dvv[D];
   for (int d = 0; d < D; ++d) {
-    kv[d] = kr[d];
-    vv[d] = vr[d];
+    kv[d] = live ? kr[d] : 0.f;
+    vv[d] = live ? vr[d] : 0.f;
     dkv[d] = dvv[d] = 0.f;
   }
   for (int q0 = kCausal ? k_tile * kF32Threads : 0; q0 < L; q0 += kRowTile) {
     __syncthreads();
     for (int i = threadIdx.x; i < kRowTile * D; i += kF32Threads) {
       const int r = i / D, c = i % D;
-      q_s[r][c] = q[b * st.qb + static_cast<int64_t>(q0 + r) * st.ql + h * st.qh + c];
-      do_s[r][c] = dout[b * st.db + static_cast<int64_t>(q0 + r) * st.dl + h * st.dh + c];
+      const bool ok = q0 + r < L;
+      q_s[r][c] = ok ? q[b * st.qb + static_cast<int64_t>(q0 + r) * st.ql + h * st.qh + c] : 0.f;
+      do_s[r][c] = ok ? dout[b * st.db + static_cast<int64_t>(q0 + r) * st.dl + h * st.dh + c] : 0.f;
     }
     if (threadIdx.x < kRowTile) {
-      lse_s[threadIdx.x] = lse[bh + q0 + threadIdx.x];
-      di_s[threadIdx.x] = di[bh + q0 + threadIdx.x];
+      const bool ok = q0 + threadIdx.x < L;
+      lse_s[threadIdx.x] = ok ? lse[bh + q0 + threadIdx.x] : 0.f;
+      di_s[threadIdx.x] = ok ? di[bh + q0 + threadIdx.x] : 0.f;
     }
     __syncthreads();
     for (int r = 0; r < kRowTile; ++r) {
+      if (q0 + r >= L) break;
       if (kCausal && q0 + r < key) continue;
       float s = 0.f, dp = 0.f;
       for (int d = 0; d < D; ++d) {
@@ -468,6 +485,7 @@ __global__ void __launch_bounds__(kF32Threads)
       }
     }
   }
+  if (!live) return;
   float* dkr = dk + (static_cast<int64_t>(b) * L + key) * H * D +
                static_cast<int64_t>(h) * D;
   float* dvr = dv + (static_cast<int64_t>(b) * L + key) * H * D +
@@ -492,28 +510,30 @@ __global__ void __launch_bounds__(kF32Threads)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row = q_tile * kF32Threads + threadIdx.x;
+  const bool live = row < L;
   const float* qr = q + b * st.qb + static_cast<int64_t>(row) * st.ql + h * st.qh;
   const float* dr = dout + b * st.db + static_cast<int64_t>(row) * st.dl + h * st.dh;
   const int64_t bh = (static_cast<int64_t>(b) * H + h) * L;
-  const float lse_r = lse[bh + row];
-  const float di_r = di[bh + row];
+  const float lse_r = live ? lse[bh + row] : 0.f;
+  const float di_r = live ? di[bh + row] : 0.f;
   float qv[D], dov[D], acc[D];
   for (int d = 0; d < D; ++d) {
-    qv[d] = qr[d];
-    dov[d] = dr[d];
+    qv[d] = live ? qr[d] : 0.f;
+    dov[d] = live ? dr[d] : 0.f;
     acc[d] = 0.f;
   }
-  const int k_end = kCausal ? (q_tile + 1) * kF32Threads : L;
+  const int k_end = min(kCausal ? (q_tile + 1) * kF32Threads : L, L);
   for (int k0 = 0; k0 < k_end; k0 += kRowTile) {
     __syncthreads();
     for (int i = threadIdx.x; i < kRowTile * D; i += kF32Threads) {
       const int r = i / D, c = i % D;
-      k_s[r][c] = k[b * st.kb + static_cast<int64_t>(k0 + r) * st.kl + h * st.kh + c];
-      v_s[r][c] = v[b * st.vb + static_cast<int64_t>(k0 + r) * st.vl + h * st.vh + c];
+      const bool ok = k0 + r < L;
+      k_s[r][c] = ok ? k[b * st.kb + static_cast<int64_t>(k0 + r) * st.kl + h * st.kh + c] : 0.f;
+      v_s[r][c] = ok ? v[b * st.vb + static_cast<int64_t>(k0 + r) * st.vl + h * st.vh + c] : 0.f;
     }
     __syncthreads();
     for (int r = 0; r < kRowTile; ++r) {
-      if (kCausal && k0 + r > row) break;
+      if (k0 + r >= L || (kCausal && k0 + r > row)) break;
       float s = 0.f, dp = 0.f;
       for (int d = 0; d < D; ++d) {
         s = fmaf(qv[d], k_s[r][d], s);
@@ -523,6 +543,7 @@ __global__ void __launch_bounds__(kF32Threads)
       for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, k_s[r][d], acc[d]);
     }
   }
+  if (!live) return;
   float* out = dq + (static_cast<int64_t>(b) * L + row) * H * D +
                static_cast<int64_t>(h) * D;
   for (int d = 0; d < D; ++d) out[d] = acc[d] * scale;
@@ -541,42 +562,43 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool kCausal>
-cudaError_t dkv_bf16(const Args& a) {
-  auto kernel = flash_bwd_dkv_bf16<D, kCausal>;
+int tiles(int L) { return (L + kBlockM - 1) / kBlockM; }
+
+template <typename T, int D, bool kCausal>
+cudaError_t dkv_mma(const Args& a) {
+  auto kernel = flash_bwd_dkv_mma<T, D, kCausal>;
   constexpr int kThreads = 128 * kDkvSplit<D>;
-  const int smem = (2 * kBlockN + 2 * kBlockM) * (D + kPad) * sizeof(bf16) +
+  const int smem = (2 * kBlockN + 2 * kBlockM) * (D + kPad) * sizeof(T) +
                    2 * kBlockM * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.L / kBlockN, a.H, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.di, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.L, a.H,
-      a.st, a.scale, a.scale * kLog2e);
+  kernel<<<dim3(tiles(a.L), a.H, a.B), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.L, a.H, a.st, a.scale,
+      a.scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <int D, bool kCausal>
-cudaError_t dq_bf16(const Args& a) {
-  auto kernel = flash_bwd_dq_bf16<D, kCausal>;
-  const int smem = (2 * kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(bf16);
+template <typename T, int D, bool kCausal>
+cudaError_t dq_mma(const Args& a) {
+  auto kernel = flash_bwd_dq_mma<T, D, kCausal>;
+  const int smem = (2 * kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.L / kBlockM, a.H, a.B), kDqThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.di, static_cast<bf16*>(a.dq), a.L, a.H, a.st, a.scale,
-      a.scale * kLog2e);
+  kernel<<<dim3(tiles(a.L), a.H, a.B), kDqThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
+      static_cast<T*>(a.dq), a.L, a.H, a.st, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D, bool kCausal>
 cudaError_t dkv_f32(const Args& a) {
   flash_bwd_dkv_f32<D, kCausal>
-      <<<dim3(a.L / kF32Threads, a.H, a.B), kF32Threads, 0, a.stream>>>(
+      <<<dim3(tiles(a.L), a.H, a.B), kF32Threads, 0, a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           a.lse, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
@@ -587,7 +609,7 @@ cudaError_t dkv_f32(const Args& a) {
 template <int D, bool kCausal>
 cudaError_t dq_f32(const Args& a) {
   flash_bwd_dq_f32<D, kCausal>
-      <<<dim3(a.L / kF32Threads, a.H, a.B), kF32Threads, 0, a.stream>>>(
+      <<<dim3(tiles(a.L), a.H, a.B), kF32Threads, 0, a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           a.lse, a.di, static_cast<float*>(a.dq), a.L, a.H, a.st, a.scale);
@@ -596,18 +618,24 @@ cudaError_t dq_f32(const Args& a) {
 
 typedef cudaError_t (*Launcher)(const Args&);
 
+template <typename T, int D>
+Launcher pick_mma(bool dkv, int causal) {
+  if (dkv) return causal ? dkv_mma<T, D, true> : dkv_mma<T, D, false>;
+  return causal ? dq_mma<T, D, true> : dq_mma<T, D, false>;
+}
+
 template <int D>
-Launcher pick(bool dkv, int is_f32, int causal) {
-  if (dkv) {
-    if (is_f32) return causal ? dkv_f32<D, true> : dkv_f32<D, false>;
-    return causal ? dkv_bf16<D, true> : dkv_bf16<D, false>;
+Launcher pick(bool dkv, int dtype, int causal) {
+  if (dtype == 1) {
+    if (dkv) return causal ? dkv_f32<D, true> : dkv_f32<D, false>;
+    return causal ? dq_f32<D, true> : dq_f32<D, false>;
   }
-  if (is_f32) return causal ? dq_f32<D, true> : dq_f32<D, false>;
-  return causal ? dq_bf16<D, true> : dq_bf16<D, false>;
+  return dtype == 2 ? pick_mma<f16, D>(dkv, causal)
+                    : pick_mma<bf16, D>(dkv, causal);
 }
 
 int launch(bool dkv, int dtype, int D, int causal, const Args& a) {
-  if (a.L % kBlockM != 0 || (dtype != 0 && dtype != 1))
+  if (a.L < 1 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Launcher fn = nullptr;
   switch (D) {
@@ -621,8 +649,9 @@ int launch(bool dkv, int dtype, int D, int causal, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. Strides are in elements (q, k, v,
-// dO, each (b, l, h)); the head dim must be contiguous. lse and di are
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16. L >= 1. Strides are in
+// elements (q, k, v, dO, each (b, l, h)); the head dim must be
+// contiguous. lse and di are
 // (B, H, L) float32, contiguous; the outputs are (B, L, H, D),
 // contiguous. Each returns the cudaError_t of its launch.
 extern "C" int hvd_flash_attention_bwd_dkv(

@@ -13,7 +13,10 @@
 // q, k, v and o are (B, L, H, D) with the head dim contiguous and any
 // other strides (the JAX call site's public layout, read in place);
 // o is written contiguous; lse is (B, H, L) float32. Causal means query
-// i sees keys 0..i (top-left aligned, L == Lk).
+// i sees keys 0..i (top-left aligned, L == Lk). Any L >= 1: the last
+// query and key tiles may be ragged; their missing rows are zero-filled
+// in shared memory, key columns at or past L are masked to -inf, and
+// rows at or past L are not stored.
 //
 // What bounds it on an H100: at the serving shapes (L = 2048, D = 128)
 // the scores need 4*L*L*D operations per (b, h) against 8*L*D bytes of
@@ -28,7 +31,8 @@
 // causal grid launches the longest query tiles first. It does not yet
 // use wgmma, TMA, warp specialisation or a multi-stage pipeline.
 //
-// bf16 is the served type. The float32 entry point is a plain scalar
+// bf16 is the served type; f16 runs the same kernel with the f16 form
+// of the tensor-core product. The float32 entry point is a plain scalar
 // kernel (CUDA cores, exact f32 arithmetic) for tests against the plain
 // PyTorch version; no served path runs it.
 
@@ -50,17 +54,18 @@ struct Strides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh;
 };
 
-template <int D, bool kCausal>
+// T: bf16 or f16.
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                   float* __restrict__ lse, int L, int H, Strides st,
-                   float scale_log2) {
+    flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int L, int H, Strides st,
+                  float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kS = D + kPad;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kBlockM * kS;
-  bf16* v_s = k_s + kBlockN * kS;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + kBlockM * kS;
+  T* v_s = k_s + kBlockN * kS;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -72,11 +77,11 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z;
   const int q0 = q_tile * kBlockM;
 
-  const bf16* qg = q + b * st.qb + static_cast<int64_t>(q0) * st.ql + h * st.qh;
-  const bf16* kg = k + b * st.kb + h * st.kh;
-  const bf16* vg = v + b * st.vb + h * st.vh;
+  const T* qg = q + b * st.qb + static_cast<int64_t>(q0) * st.ql + h * st.qh;
+  const T* kg = k + b * st.kb + h * st.kh;
+  const T* vg = v + b * st.vb + h * st.vh;
 
-  load_tile<D, kThreads>(q_s, qg, st.ql, kBlockM);
+  load_tile<D, kThreads>(q_s, qg, st.ql, kBlockM, L - q0);
   cp_async_commit();
 
   float acc[D / 8][4];
@@ -87,15 +92,16 @@ __global__ void __launch_bounds__(kThreads)
   // rows g and g + 8 of the warp's 16.
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  const int n_tiles = kCausal ? q_tile + 1 : L / kBlockN;
+  const int n_tiles = kCausal ? q_tile + 1 : (L + kBlockN - 1) / kBlockN;
   const int wrow = warp * 16;
   for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<D, kThreads>(
-        k_s, kg + static_cast<int64_t>(j) * kBlockN * st.kl, st.kl, kBlockN);
+        k_s, kg + static_cast<int64_t>(k0) * st.kl, st.kl, kBlockN, L - k0);
     cp_async_commit();
     load_tile<D, kThreads>(
-        v_s, vg + static_cast<int64_t>(j) * kBlockN * st.vl, st.vl, kBlockN);
+        v_s, vg + static_cast<int64_t>(k0) * st.vl, st.vl, kBlockN, L - k0);
     cp_async_commit();
     cp_async_wait<1>();  // Q and K have landed; V may be in flight
     __syncthreads();
@@ -106,30 +112,32 @@ __global__ void __launch_bounds__(kThreads)
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      const bf16* qa = q_s + (wrow + g) * kS + kd * 16 + 2 * t;
+      const T* qa = q_s + (wrow + g) * kS + kd * 16 + 2 * t;
       const uint32_t a0 = ld_pair(qa);
       const uint32_t a1 = ld_pair(qa + 8 * kS);
       const uint32_t a2 = ld_pair(qa + 8);
       const uint32_t a3 = ld_pair(qa + 8 * kS + 8);
 #pragma unroll
       for (int n = 0; n < kBlockN / 8; ++n) {
-        const bf16* kb = k_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816(s[n], a0, a1, a2, a3, ld_pair(kb), ld_pair(kb + 8));
+        const T* kb = k_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
+        mma_16816<T>(s[n], a0, a1, a2, a3, ld_pair(kb), ld_pair(kb + 8));
       }
     }
 
-    // Scale into the log2 domain, mask above the diagonal, row max.
+    // Scale into the log2 domain, mask above the diagonal and past the
+    // ragged end of the keys, row max.
     const bool diag = kCausal && j == q_tile;
+    const bool ragged = k0 + kBlockN > L;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int n = 0; n < kBlockN / 8; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = s[n][i] * scale_log2;
-        if (diag) {
+        if (diag || ragged) {  // uniform across the tile: no cost elsewhere
           const int key = n * 8 + 2 * t + (i & 1);
           const int row = wrow + g + (i >= 2 ? 8 : 0);
-          if (key > row) x = -INFINITY;
+          if ((diag && key > row) || (ragged && k0 + key >= L)) x = -INFINITY;
         }
         s[n][i] = x;
       }
@@ -174,17 +182,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       // P's accumulator layout for keys 16kk..16kk+15 is the A operand.
-      const uint32_t a0 = pack_float2(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_float2(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_float2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_float2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vb = v_s + (kk * 16 + 2 * t) * kS + g;
+      const uint32_t a0 = pack_float2<T>(s[2 * kk][0], s[2 * kk][1]);
+      const uint32_t a1 = pack_float2<T>(s[2 * kk][2], s[2 * kk][3]);
+      const uint32_t a2 = pack_float2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      const uint32_t a3 = pack_float2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const T* vb = v_s + (kk * 16 + 2 * t) * kS + g;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* p = vb + dt * 8;
+        const T* p = vb + dt * 8;
         const uint32_t b0 = pack_pair(p[0], p[kS]);
         const uint32_t b1 = pack_pair(p[8 * kS], p[9 * kS]);
-        mma_16816(acc[dt], a0, a1, a2, a3, b0, b1);
+        mma_16816<T>(acc[dt], a0, a1, a2, a3, b0, b1);
       }
     }
   }
@@ -197,27 +205,30 @@ __global__ void __launch_bounds__(kThreads)
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   const int r0 = q0 + wrow + g;
   const int r1 = r0 + 8;
-  bf16* o0 = o + (static_cast<int64_t>(b) * L + r0) * H * D +
-             static_cast<int64_t>(h) * D;
-  bf16* o1 = o + (static_cast<int64_t>(b) * L + r1) * H * D +
-             static_cast<int64_t>(h) * D;
+  T* o0 = o + (static_cast<int64_t>(b) * L + r0) * H * D +
+          static_cast<int64_t>(h) * D;
+  T* o1 = o + (static_cast<int64_t>(b) * L + r1) * H * D +
+          static_cast<int64_t>(h) * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(o0 + c) =
-        pack_float2(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o1 + c) =
-        pack_float2(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(o0 + c) =
+          pack_float2<T>(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (r1 < L)
+      *reinterpret_cast<uint32_t*>(o1 + c) =
+          pack_float2<T>(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
   if (t == 0) {
     float* lrow = lse + (static_cast<int64_t>(b) * H + h) * L;
-    lrow[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : -INFINITY;
-    lrow[r1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : -INFINITY;
+    if (r0 < L) lrow[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : -INFINITY;
+    if (r1 < L) lrow[r1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : -INFINITY;
   }
 }
 
 // float32: one thread per query row, keys one at a time, K/V tiles of
-// kKeyTile rows in static shared memory.
+// kKeyTile rows in static shared memory (rows past L zero-filled; a
+// thread whose row is past L computes on zeros and stores nothing).
 constexpr int kKeyTile = 16;
 
 template <int D, bool kCausal>
@@ -232,24 +243,26 @@ __global__ void __launch_bounds__(kBlockM)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row = q_tile * kBlockM + threadIdx.x;
+  const bool live = row < L;
   const float* qr = q + b * st.qb + static_cast<int64_t>(row) * st.ql + h * st.qh;
   float qv[D], acc[D];
   for (int d = 0; d < D; ++d) {
-    qv[d] = qr[d] * scale_log2;
+    qv[d] = live ? qr[d] * scale_log2 : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
-  const int k_end = kCausal ? (q_tile + 1) * kBlockM : L;
+  const int k_end = min(kCausal ? (q_tile + 1) * kBlockM : L, L);
   for (int k0 = 0; k0 < k_end; k0 += kKeyTile) {
     __syncthreads();
     for (int i = threadIdx.x; i < kKeyTile * D; i += kBlockM) {
       const int r = i / D, c = i % D;
-      k_s[r][c] = k[b * st.kb + static_cast<int64_t>(k0 + r) * st.kl + h * st.kh + c];
-      v_s[r][c] = v[b * st.vb + static_cast<int64_t>(k0 + r) * st.vl + h * st.vh + c];
+      const bool ok = k0 + r < L;
+      k_s[r][c] = ok ? k[b * st.kb + static_cast<int64_t>(k0 + r) * st.kl + h * st.kh + c] : 0.f;
+      v_s[r][c] = ok ? v[b * st.vb + static_cast<int64_t>(k0 + r) * st.vl + h * st.vh + c] : 0.f;
     }
     __syncthreads();
     for (int r = 0; r < kKeyTile; ++r) {
-      if (kCausal && k0 + r > row) break;
+      if (k0 + r >= L || (kCausal && k0 + r > row)) break;
       float x = 0.f;
       for (int d = 0; d < D; ++d) x = fmaf(qv[d], k_s[r][d], x);
       const float mn = fmaxf(m, x);
@@ -260,6 +273,7 @@ __global__ void __launch_bounds__(kBlockM)
       m = mn;
     }
   }
+  if (!live) return;
   const float inv = l > 0.f ? 1.f / l : 0.f;
   float* orow = o + (static_cast<int64_t>(b) * L + row) * H * D +
                 static_cast<int64_t>(h) * D;
@@ -268,19 +282,21 @@ __global__ void __launch_bounds__(kBlockM)
       l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
 }
 
-template <int D, bool kCausal>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int B, int L, int H, const Strides& st,
-                        float scale_log2, cudaStream_t stream) {
-  const int smem = (kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(bf16);
+int q_tiles(int L) { return (L + kBlockM - 1) / kBlockM; }
+
+template <typename T, int D, bool kCausal>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int L, int H, const Strides& st,
+                       float scale_log2, cudaStream_t stream) {
+  const int smem = (kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_mma<T, D, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(L / kBlockM, H, B);
-  flash_fwd_bf16<D, kCausal><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, L, H, st,
+  const dim3 grid(q_tiles(L), H, B);
+  flash_fwd_mma<T, D, kCausal><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, st,
       scale_log2);
   return cudaGetLastError();
 }
@@ -289,7 +305,7 @@ template <int D, bool kCausal>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int L, int H, const Strides& st,
                        float scale_log2, cudaStream_t stream) {
-  const dim3 grid(L / kBlockM, H, B);
+  const dim3 grid(q_tiles(L), H, B);
   flash_fwd_f32<D, kCausal><<<grid, kBlockM, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, L, H, st,
@@ -302,22 +318,25 @@ typedef cudaError_t (*Launcher)(const void*, const void*, const void*, void*,
                                 cudaStream_t);
 
 template <int D>
-Launcher pick(int is_f32, int causal) {
-  if (is_f32) return causal ? launch_f32<D, true> : launch_f32<D, false>;
-  return causal ? launch_bf16<D, true> : launch_bf16<D, false>;
+Launcher pick(int dtype, int causal) {
+  if (dtype == 1) return causal ? launch_f32<D, true> : launch_f32<D, false>;
+  if (dtype == 2)
+    return causal ? launch_mma<f16, D, true> : launch_mma<f16, D, false>;
+  return causal ? launch_mma<bf16, D, true> : launch_mma<bf16, D, false>;
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. Strides are in elements; the head
-// dim must be contiguous. Returns the cudaError_t of the launch.
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16. L >= 1. Strides are in
+// elements; the head dim must be contiguous. Returns the cudaError_t of
+// the launch.
 extern "C" int hvd_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int B, int L, int H, int D, long long q_sb, long long q_sl,
     long long q_sh, long long k_sb, long long k_sl, long long k_sh,
     long long v_sb, long long v_sl, long long v_sh, int causal, float scale,
     void* stream) {
-  if (L % kBlockM != 0 || (dtype != 0 && dtype != 1))
+  if (L < 1 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Launcher fn = nullptr;
   switch (D) {

@@ -1,6 +1,7 @@
 // Building blocks shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): the bf16 tensor-core
-// product, fragment packing, cp.async copies and the padded tile load.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): the 16-bit tensor-core
+// product (bf16 or f16 operands, f32 accumulate), fragment packing,
+// cp.async copies and the padded, zero-filled tile load.
 //
 // Fragment layouts of mma.sync.m16n8k16 (row.col), g = lane / 4 and
 // t = lane % 4: A (16 x 16, row-major) a0 = A[g][2t..2t+1],
@@ -11,21 +12,31 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hvd_flash {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
-constexpr int kPad = 8;  // bf16 of row padding: conflict-free fragment loads
+constexpr int kPad = 8;  // elements of row padding: conflict-free fragment loads
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// C += A B on the tensor cores, A and B of the 16-bit type T.
+template <typename T>
 __device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0,
                                           uint32_t a1, uint32_t a2,
                                           uint32_t a3, uint32_t b0,
-                                          uint32_t b1) {
+                                          uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma_16816<bf16>(float (&c)[4], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint32_t b0,
+                                                uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -33,24 +44,54 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+template <>
+__device__ __forceinline__ void mma_16816<f16>(float (&c)[4], uint32_t a0,
+                                               uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t ld_pair(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_pair(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// Two 16-bit values as one register, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(T lo, T hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&lo)) |
+         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&hi))
+          << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_float2(float lo, float hi) {
+// Two floats rounded (to nearest even) to T, as one register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack_float2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack_float2<bf16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+template <>
+__device__ __forceinline__ uint32_t pack_float2<f16>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 bytes from gmem when `valid`, else 16 zero bytes (nothing is read).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -64,22 +105,28 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // rows x D tile from global (row stride in elements, head dim
 // contiguous) into shared memory with row stride D + kPad, copied by
-// the kThreads threads of the block.
-template <int D, int kThreads>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          int64_t row_stride, int rows) {
+// the kThreads threads of the block. Rows at or past `valid` (the ragged
+// end of the sequence) are zero-filled and not read.
+template <int D, int kThreads, typename T>
+__device__ __forceinline__ void load_tile(T* s, const T* g,
+                                          int64_t row_stride, int rows,
+                                          int valid) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
-    cp_async16(s + r * (D + kPad) + c, g + r * row_stride + c);
+    const bool ok = r < valid;
+    cp_async16_zfill(s + r * (D + kPad) + c,
+                     ok ? g + r * row_stride + c : g, ok);
   }
 }
 
-// n contiguous floats (n % 4 == 0, 16-byte aligned) into shared memory.
-__device__ __forceinline__ void load_floats(float* s, const float* g, int n) {
-  for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
-    cp_async16(s + 4 * i, g + 4 * i);
+// n floats into shared memory, plain loads; entries at or past `valid`
+// get `fill`. Visible to the block after its next __syncthreads.
+__device__ __forceinline__ void load_floats(float* s, const float* g, int n,
+                                            int valid, float fill) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    s[i] = i < valid ? g[i] : fill;
 }
 
 }  // namespace hvd_flash

@@ -14,10 +14,12 @@ q, k, v and o are (B, L, H, D) (strides are read, no transposed
 copies), o is in q's dtype, lse is (B, H, L) float32.
 ``flash_attention_bwd(q, k, v, o, lse, do, causal, scale) -> (dq, dk,
 dv)`` takes the forward's inputs and outputs and o's cotangent ``do``
-and returns the gradients in q's dtype and layout. Supported shapes are
-the ones the JAX package's ``_flash_supported`` admits (D in
-{64, 128, 256}, L % 128 == 0, k and v shaped like q), in bfloat16 or
-float32; anything else raises ValueError before any launch.
+and returns the gradients in q's dtype and layout. The kernels take any
+sequence length L >= 1 (a ragged last tile is masked in the kernel), k
+and v shaped like q, in bfloat16, float16 or float32, and a head dim D
+in {64, 128, 256}. That head-dim rule is a declared difference from the
+JAX package, whose einsum path computes any D: anything outside it
+raises ValueError before any launch.
 
 Where they run is decided by where the tensors lie, and nowhere else:
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
@@ -61,7 +63,7 @@ LIBRARIES = {
 }
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 # Kernel launches since import (or since the caller last reset them), one
 # counter per kernel: a run reads them to show its path went through the
@@ -86,10 +88,14 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor,
             f"{tuple(v.shape)} must match q {tuple(q.shape)} (repeat "
             f"GQA heads first)")
     _, L, _, D = q.shape
-    if D not in SUPPORTED_HEAD_DIMS or L % 128 != 0:
+    if L < 1:
+        raise ValueError(f"flash_attention: needs L >= 1, got L={L}")
+    if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
-            f"flash_attention: needs D in {SUPPORTED_HEAD_DIMS} and "
-            f"L % 128 == 0, got L={L}, D={D}")
+            f"flash_attention: the CUDA kernels take a head dim D in "
+            f"{SUPPORTED_HEAD_DIMS}, got D={D}; other head dims are a "
+            f"declared difference from the JAX package's einsum path, "
+            f"which computes any D (ROADMAP C)")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(

@@ -8,7 +8,8 @@ HOROVOD_FLASH_ATTENTION unset (its einsum path), the Pallas library's
 
 Tolerances, as max abs error over max |reference|: float32 1e-4
 (summation order only); bfloat16 3e-2 (bf16 rounds at different places
-in XLA and PyTorch, and mha_reference keeps its scores in bf16).
+in XLA and PyTorch, and mha_reference keeps its scores in bf16); float16
+3e-3 (the same, with 3 more mantissa bits).
 """
 
 import importlib
@@ -29,9 +30,11 @@ from horovod_tpu_torch.parallel import ring_attention as tra
 jra = importlib.import_module("horovod_tpu.parallel.ring_attention")
 
 B, L, H, D = 2, 128, 4, 64
-TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 3e-3}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+       "float16": jnp.float16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+         "float16": torch.float16}
 
 
 def _inputs(dtype, seed=0):
@@ -104,9 +107,9 @@ def test_port_attention_matches_jax(dtype, causal, mode, monkeypatch):
 
 @pytest.mark.parametrize("shape_q,shape_k,dtype", [
     ((B, L, H, 48), (B, L, H, 48), torch.float32),     # head dim
-    ((B, 100, H, D), (B, 100, H, D), torch.float32),   # L % 128
+    ((B, 0, H, D), (B, 0, H, D), torch.float32),       # L == 0
     ((B, L, H, D), (B, L, H // 2, D), torch.float32),  # GQA not repeated
-    ((B, L, H, D), (B, L, H, D), torch.float16),       # dtype
+    ((B, L, H, D), (B, L, H, D), torch.float64),       # dtype
 ])
 def test_unsupported_inputs_raise_before_launch(shape_q, shape_k, dtype):
     q = torch.zeros(shape_q, dtype=dtype)
@@ -132,8 +135,10 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     ((B, L, H, D), (B, L, H // 2, D)),
 ])
 def test_kernel_shape_rule_matches_jax(shape_q, shape_k, monkeypatch):
-    """check_inputs admits exactly the shapes the JAX _flash_supported
-    admits on its kernel's backend."""
+    """check_inputs admits what the JAX _flash_supported admits on its
+    kernel's backend and, as the one declared difference, a sequence
+    length that is not a multiple of 128 (the CUDA kernels mask a ragged
+    last tile; the JAX package's einsum path computes it)."""
     monkeypatch.setattr(jra.jax, "default_backend", lambda: "tpu")
     jax_ok = jra._flash_supported(jnp.zeros(shape_q), jnp.zeros(shape_k))
     q, k = torch.zeros(shape_q), torch.zeros(shape_k)
@@ -142,7 +147,9 @@ def test_kernel_shape_rule_matches_jax(shape_q, shape_k, monkeypatch):
         port_ok = True
     except ValueError:
         port_ok = False
-    assert port_ok == jax_ok
+    ragged_only = shape_q == shape_k and shape_q[1] % 128 != 0 \
+        and shape_q[-1] in fa.SUPPORTED_HEAD_DIMS
+    assert port_ok == (jax_ok or ragged_only)
 
 
 def test_cpu_attention_takes_shapes_the_kernel_does_not(monkeypatch):
@@ -261,3 +268,43 @@ def test_backward_on_the_cpu_is_the_plain_version():
     meta = [x.to("meta") for x in (q, k, v, o, lse, do)]
     with pytest.raises(ValueError, match="neither CPU nor CUDA"):
         fa.flash_attention_bwd(*meta)
+
+
+# ---------------------------------------------------------------------------
+# Ragged sequence lengths and float16: the kernels take them (check_inputs
+# admits them on every device), and the port's attention there matches the
+# JAX package's einsum path, forward and gradient.
+
+@pytest.mark.parametrize("L_", [16, 1000, 2047])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_kernels_take_ragged_lengths_and_float16(L_, dtype):
+    q = torch.zeros((1, L_, 2, 64), dtype=dtype)
+    fa.check_inputs(q, q, q)
+    fa.check_inputs(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def test_head_dims_outside_the_kernels_name_the_declared_difference():
+    q = torch.zeros((1, 16, 2, 96))
+    with pytest.raises(ValueError, match="declared difference"):
+        fa.check_inputs(q, q, q)
+
+
+@pytest.mark.parametrize("L_", [16, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_port_attention_at_ragged_lengths_matches_jax(L_, dtype,
+                                                      monkeypatch):
+    monkeypatch.delenv("HOROVOD_FLASH_ATTENTION", raising=False)
+    rng = np.random.RandomState(L_)
+    arrs = [rng.randn(1, L_, 2, 64).astype(np.float32) for _ in range(4)]
+    jq, jk, jv, jdo = (jnp.asarray(a, JNP[dtype]) for a in arrs)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(TORCH[dtype])
+                       .requires_grad_() for a in arrs)
+    ref, vjp = jax.vjp(lambda q, k, v: jra.attention(q, k, v, causal=True),
+                       jq, jk, jv)
+    got = tra.attention(tq, tk, tv, causal=True)
+    assert got.dtype == TORCH[dtype]
+    _assert_close(got.detach(), ref, TOL[dtype])
+    got.backward(tdo)
+    for g, r in zip((tq.grad, tk.grad, tv.grad), vjp(jdo)):
+        _assert_close(g, r, TOL[dtype])
