@@ -20,6 +20,14 @@ none; ``device="cpu"`` (or one named card) puts every worker there. A
 worker never changes device, and a failure in warm-up or in a batch is
 counted in ``stats()["worker_failures"]`` with its cause.
 
+bfloat16, declared: the port imports torch and numpy only, and numpy has
+no bfloat16 without ml_dtypes, so a bfloat16 row travels as a CPU
+``torch.Tensor`` of dtype ``torch.bfloat16``. ``dtype="bfloat16"`` means
+requests of ``torch.bfloat16`` (``submit`` converts what it is given and
+the padded batch is such a tensor), and a forward that returns bfloat16
+gives each request its row as such a tensor. The values are the JAX
+package's bfloat16 values; every other dtype travels as numpy, as there.
+
 Not ported yet: the remote pool (``serve_endpoint`` /
 ``remote_worker_loop``), membership listeners, live weight hot-swap
 (``weights=``) and ``write_timeline``.
@@ -429,7 +437,8 @@ class _LocalWorker:
         fe = self.frontend
         hop = fe._hop_for(batch, self.wid) if fe._trace else None
         arr = fe._pad(batch)
-        x = torch.from_numpy(arr).to(self.device)
+        x = (arr if isinstance(arr, torch.Tensor)
+             else torch.from_numpy(arr)).to(self.device)
         if hop is not None:
             hop.t_exec0_ns = time.monotonic_ns()
             _tracing.record("serving_exec", batch.id,
@@ -439,7 +448,9 @@ class _LocalWorker:
         with torch.inference_mode():
             y = (ex(self._params, x) if self._params is not None
                  else ex(x))
-        y = y.cpu().numpy()
+        y = y.cpu()
+        if y.dtype != torch.bfloat16:         # bf16 rows stay tensors
+            y = y.numpy()
         if hop is not None:
             hop.t_exec1_ns = time.monotonic_ns()
         rows = fe._unpad(batch, y)
@@ -478,9 +489,13 @@ class ServingFrontend:
         self._devices = pool_devices(device, "ServingFrontend")
         self._forward = forward_fn
         self._feature_shape = tuple(int(d) for d in feature_shape)
-        self._dtype = np.dtype(dtype)
-        self._torch_dtype = torch.from_numpy(
-            np.zeros((), self._dtype)).dtype
+        if str(dtype) in ("bfloat16", "torch.bfloat16"):
+            self._dtype = None                # rows are torch.bfloat16
+            self._torch_dtype = torch.bfloat16
+        else:
+            self._dtype = np.dtype(dtype)
+            self._torch_dtype = torch.from_numpy(
+                np.zeros((), self._dtype)).dtype
         self._params0 = params
         self._params0_digest = ""
         if params is not None:
@@ -640,7 +655,11 @@ class ServingFrontend:
         deadline (and goodput class); None means the default class
         (HOROVOD_SERVING_DEFAULT_SLO_MS, falling back to the latency
         budget)."""
-        arr = np.asarray(x, dtype=self._dtype)
+        if self._dtype is None:
+            arr = torch.as_tensor(np.asarray(x) if not isinstance(
+                x, torch.Tensor) else x).to("cpu", torch.bfloat16)
+        else:
+            arr = np.asarray(x, dtype=self._dtype)
         if self.ladder.len_buckets:
             want = self._feature_shape
             if arr.ndim != len(want) + 1 or arr.shape[1:] != want:
@@ -778,15 +797,19 @@ class ServingFrontend:
                 return hop
         return None
 
-    def _pad(self, batch: _Batch) -> np.ndarray:
+    def _zeros(self, shape: Tuple[int, ...]):
+        if self._dtype is None:
+            return torch.zeros(shape, dtype=torch.bfloat16)
+        return np.zeros(shape, dtype=self._dtype)
+
+    def _pad(self, batch: _Batch):
         if batch.bucket_len:
-            out = np.zeros((batch.bucket_b, batch.bucket_len)
-                           + self._feature_shape, dtype=self._dtype)
+            out = self._zeros((batch.bucket_b, batch.bucket_len)
+                              + self._feature_shape)
             for i, r in enumerate(batch.requests):
                 out[i, :r.payload.shape[0]] = r.payload
         else:
-            out = np.zeros((batch.bucket_b,) + self._feature_shape,
-                           dtype=self._dtype)
+            out = self._zeros((batch.bucket_b,) + self._feature_shape)
             for i, r in enumerate(batch.requests):
                 out[i] = r.payload
         return out
@@ -800,7 +823,8 @@ class ServingFrontend:
                 # The forward kept the padded length axis: return only
                 # the request's true length.
                 row = row[:r.payload.shape[0]]
-            rows.append(np.asarray(row))
+            rows.append(row if isinstance(row, torch.Tensor)
+                        else np.asarray(row))
         return rows
 
     def _complete_batch(self, batch: _Batch,

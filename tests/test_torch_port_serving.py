@@ -142,3 +142,41 @@ def test_worker_failure_is_counted_with_its_cause():
         assert fe.stats()["workers"] == 0
     finally:
         fe.close(timeout=1)
+
+
+# bfloat16 on the wire (the port's declared form: a CPU torch.Tensor of
+# dtype torch.bfloat16, see serving.py's docstring). Both frontends side by
+# side on the two inputs: a forward that returns bfloat16 for float32
+# requests, and bfloat16 requests. The values must be bitwise the
+# reference's.
+BF16_CASES = {
+    "bf16_rows": (lambda x: (2 * x).astype(jnp.bfloat16),
+                  lambda x: (2 * x).to(torch.bfloat16), "float32",
+                  np.array([1.0, -0.3, 2.5e-3, 7.0], np.float32)),
+    "bf16_requests": (lambda x: x * 3, lambda x: x * 3, "bfloat16",
+                      np.array([1.5, -2.25, 0.1, 3.3e4], np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bfloat16_rows_and_requests_are_the_references(case):
+    jfwd, tfwd, dtype, x = BF16_CASES[case]
+    env = dict(ENV, HOROVOD_SERVING_LATENCY_BUDGET_MS="5")
+    rows = {}
+    for name, fe in (
+            ("jax", jserving.ServingFrontend(jfwd, (4,), dtype, env=env,
+                                             autoscale=False)),
+            ("port", tserving.ServingFrontend(tfwd, (4,), dtype, env=env,
+                                              autoscale=False,
+                                              device="cpu"))):
+        try:
+            rows[name] = [f.result(timeout=60) for f in
+                          [fe.submit(x), fe.submit(x[::-1].copy())]]
+            assert fe.stats()["failed"] == 0
+        finally:
+            fe.close()
+    for got, ref in zip(rows["port"], rows["jax"]):
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        assert got.dtype == torch.bfloat16 and str(ref.dtype) == "bfloat16"
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(ref, np.float32))
