@@ -7,7 +7,8 @@ parallelism) and the dense SwiGLU FFN only; the MoE FFN and the
 vocab-sharded (tp > 1) loss are not ported yet. The functions keep the
 JAX module's names and math: ``rmsnorm`` and ``_rope`` compute in
 float32 and cast back, norm weights stay float32 in a bfloat16 model,
-the LM head is tied to the embedding and returns float32 logits,
+the LM head is tied to the embedding and returns float32 logits (on the
+card from one bf16 product with a float32 accumulator),
 attention goes through ``parallel.ring_attention.attention`` (and so,
 on the card, through the flash kernels, forward and backward),
 ``loss_fn`` is the mean next-token cross-entropy plus 0.01 times the
@@ -289,14 +290,54 @@ def forward(cfg: TransformerConfig, params: Transformer,
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+class _TiedHead(torch.autograd.Function):
+    """logits = h @ embed^T with model-dtype (bf16) operands, a float32
+    accumulator and float32 logits: one ``aten::mm.dtype`` product
+    (``torch.mm(..., out_dtype=torch.float32)``), which has no autograd
+    formula of its own and no CPU kernel, so the card's path only.
+
+    The backward is JAX's: the float32 cotangent times the other operand
+    in float32, rounded once to the operand's dtype. The cotangent is
+    split into a bf16 head and a bf16 remainder (g = hi + lo to about
+    2^-17 relative), so each gradient is a mixed product over both
+    halves (the embedding's gradient one product over the stacked
+    halves) and no float32 copy of the embedding is made in either
+    direction."""
+
+    @staticmethod
+    def forward(ctx, h2: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(h2, embed)
+        return torch.mm(h2, embed.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h2, embed = ctx.saved_tensors
+        g = g.float()
+        hi = g.to(embed.dtype)
+        lo = (g - hi.float()).to(embed.dtype)
+        f32 = torch.float32
+        dh = (torch.mm(hi, embed, out_dtype=f32)
+              + torch.mm(lo, embed, out_dtype=f32)).to(h2.dtype)
+        de = torch.mm(torch.cat([hi, lo]).t(), torch.cat([h2, h2]),
+                      out_dtype=f32).to(embed.dtype)
+        return dh, de
+
+
 def logits_fn(cfg: TransformerConfig, params: Transformer,
               hidden: torch.Tensor) -> torch.Tensor:
-    """LM head tied to the embedding: (B, L, vocab) float32. The
-    model-dtype operands are exact in float32, so the float32 product
-    is JAX's model-dtype matmul with a float32 accumulator."""
-    h = hidden.to(cfg.dtype).float()
-    e = params.embed.to(cfg.dtype).float()
-    return torch.einsum("bld,vd->blv", h, e)
+    """LM head tied to the embedding: (B, L, vocab) float32, JAX's
+    model-dtype product with a float32 accumulator and output. On the
+    card that is one model-dtype product at the tensor cores' rate with
+    float32 logits (``_TiedHead``); on the CPU, which has no such
+    product, the model-dtype operands go to float32, where they are
+    exact, and the product is float32."""
+    h = hidden.to(cfg.dtype)
+    e = params.embed.to(cfg.dtype)
+    if h.device.type == "cuda" and cfg.dtype in (torch.bfloat16,
+                                                 torch.float16):
+        B, L, D = h.shape
+        return _TiedHead.apply(h.reshape(B * L, D), e).view(B, L, -1)
+    return torch.einsum("bld,vd->blv", h.float(), e.float())
 
 
 def vocab_parallel_xent(cfg: TransformerConfig, logits: torch.Tensor,

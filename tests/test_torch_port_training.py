@@ -268,3 +268,53 @@ def test_gradients_reach_the_attention_weights_through_a_kernel_output(
         assert np.abs(got[leaf]).max() > 0, leaf
         err, _ = worst_rel_err({leaf: got[leaf]}, {leaf: jgrads[leaf]})
         assert err <= TOL_GRAD["float32"], leaf
+
+
+def test_tied_head_on_the_card_is_one_mixed_precision_product():
+    """The LM head's card path (``_TiedHead``, traced here on the meta
+    device, which has the CUDA path's ``aten::mm.dtype`` shapes): the
+    forward is one bf16 x bf16 product with float32 logits, and neither
+    direction makes a float32 copy of the embedding (no op takes the
+    embedding and gives float32 but the mixed products themselves)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    V, Dm, M = 512, 64, 48
+    e = torch.empty((V, Dm), dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    h = torch.empty((M, Dm), dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            self.calls.append((str(func), ins, out))
+            return out
+
+    with Ops() as fwd_ops:
+        logits = ttfm._TiedHead.apply(h, e)
+    assert logits.dtype == torch.float32 and logits.shape == (M, V)
+    with Ops() as bwd_ops:
+        logits.backward(torch.empty_like(logits))
+    assert e.grad.dtype == torch.bfloat16 and e.grad.shape == (V, Dm)
+    assert h.grad.dtype == torch.bfloat16 and h.grad.shape == (M, Dm)
+    mm = [c for c in fwd_ops.calls if "mm" in c[0]]
+    assert [c[0] for c in mm] == ["aten.mm.dtype"]
+    for name, ins, out in fwd_ops.calls + bwd_ops.calls:
+        takes_embed = any(t.shape in ((V, Dm), (Dm, V)) for t in ins)
+        if takes_embed and isinstance(out, torch.Tensor) \
+                and out.dtype == torch.float32:
+            assert name == "aten.mm.dtype", name
+
+
+def test_lm_head_keeps_the_float32_product_on_the_cpu():
+    jcfg, tcfg, jparams, model = transplanted("bfloat16")
+    hidden = torch.from_numpy(np.random.RandomState(3).randn(
+        2, 8, SMALL["d_model"]).astype(np.float32)).to(torch.bfloat16)
+    got = ttfm.logits_fn(tcfg, model, hidden)
+    want = torch.einsum("bld,vd->blv", hidden.float(), model.embed.float())
+    assert got.dtype == torch.float32 and torch.equal(got, want)
