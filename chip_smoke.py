@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of horovod_tpu_torch on one NVIDIA card: builds the port's
-CUDA kernels from this checkout and drives its serving and training
-paths.
+CUDA kernels from this checkout and drives its serving, training and
+Adasum data-parallel paths.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   nvcc builds the flash-attention forward and backward libraries, one
-   nvcc per source, started together (ptxas register report printed).
+   nvcc builds the flash-attention forward and backward libraries and
+   the Adasum pair-combine library, one nvcc per source, started
+   together (ptxas register report printed).
 2. Forward kernel vs plain: the kernel against its plain PyTorch version
    at the served shapes (B in 1, 2, 4; L 2048; 32 heads; head dim 128;
-   bf16; causal), non-causal, head dim 64, and small float32 cases.
+   bf16; causal), non-causal, head dim 64, ragged lengths (L = 16, 1000,
+   2047), float16 at L = 2048, and small float32 cases.
    Error on o and lse, kernel time (CUDA events), plain time,
    F.scaled_dot_product_attention's time as a yardstick (timed here,
    never called by the port), the bound and the achieved TFLOP/s. At
@@ -25,11 +27,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    ServingFrontend with one worker on the card, ladder b = 1, 2, 4,
    6 requests of 2048 tokens. Asserts 6 completed, 0 failed, no worker
    failure, 3 warm-ups and no growth, finite logits, and kernel
-   launches = 32 x (warm-ups + served batches).
+   launches = 32 x (warm-ups + served batches). Then the length ladder
+   (HOROVOD_SERVING_MAX_LEN=64: rungs 16, 32, 64) at 2 layers: it warms
+   up, answers requests of 10, 30 and 50 tokens, and each answer's
+   per-position logits match the plain path at the request's own length.
 5. Backward kernels vs plain: dK/dV and dQ against the plain backward
    (float32) on the same inputs, at the training shape (2, 2048, 32,
    128) causal bf16, at B = 4, non-causal, head dim 64, head dim 256,
-   and small float32 cases. At the training shape it shows that the
+   ragged lengths (L = 16, 1000, 2047), float16 at L = 2048, and small
+   float32 cases. At the training shape it shows that the
    check fails three faults planted in a copy of the plain backward,
    each by 10x its tolerance or more, and it times each kernel, the
    plain backward and the backward of F.scaled_dot_product_attention
@@ -43,8 +49,38 @@ Phases, in order; any failure exits non-zero before the result lines:
    steps on one batch. The loss is finite at every step and falls from
    step 0 to step 4; each of the three kernels launches 4 x 5 times.
    Median step time, tokens/s and peak memory, then one more step timed
-   in parts (layers' forward, LM head and loss, backward, AdamW).
-8. A ``{"kernels": [...]}`` line, the card line, then the last line
+   in parts (layers' forward, LM head and loss, backward, AdamW). The
+   tied LM head: its forward and forward + backward with the card's
+   mixed product against the float32 product it replaced (same inputs,
+   CUDA events; logits and gradients checked against it), and the
+   median step with the float32 head swapped back in.
+8. Adasum kernels vs plain: K1 (partials and coefficients) and K2
+   (scaled add) against their plain versions for n in 1, 1000,
+   2^20 + 7, 4096 * 11008 and 32000 * 4096, in float16, bfloat16 and
+   float32, plus a zero norm, orthogonal vectors (the result is a + b)
+   and a = -b (the result is 0). Checks: |dot - dot64| / (|a| |b|) <=
+   1e-5 against float64 sums (and the same for |a|^2, |b|^2); the
+   output's relative error (norm of the error over the plain result's)
+   <= 1e-6 in float32 and 4e-3 in 16 bits (one rounding); two runs
+   bitwise equal. Two faults planted in copies of the plain version
+   (K1 without its last block of 32768 elements; K2 with ca for both
+   operands) fail the check by 10x its tolerance or more. CUDA-event
+   times of each kernel, its plain version and its bound at the
+   gradient sizes.
+9. Adasum data-parallel training, two ranks on one card: spawned
+   processes on a gloo group (NCCL refuses two ranks on one device),
+   Llama-2-7B width, 2 layers, B = 1, L = 2048, bf16,
+   HOROVOD_ADASUM_PALLAS=1: init -> broadcast_parameters (rank 1 starts
+   from another seed) -> DistributedOptimizer(adamw(3e-4), op=Adasum,
+   compression=fp16) -> 3 steps, each rank on its own batch. Gates:
+   finite losses; parameters bitwise equal across ranks after the
+   broadcast and after every step; K1 and K2 each launched once per
+   gradient tensor per step on each rank; at step 0 one reduced FFN
+   gradient equals the plain fold of the same gathered wires within
+   phase 8's tolerance. Per step: backward (hooks included), the wire's
+   gather (host staging included), the fold (K1 + K2, CUDA events),
+   AdamW, peak memory per rank.
+10. A ``{"kernels": [...]}`` line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Forward tolerances, on the worst row's relative error (``row_rel_err``:
@@ -52,8 +88,9 @@ the 2-norm of the error over the 2-norm of the plain result, per query
 row of o and per request's logits): bf16 1e-2 (the kernel rounds P to
 bf16 before the P V product, and both paths round o and every
 activation to bf16, about 2^-9 relative each); float32 1e-5 (summation
-order only). lse, on max abs error: 1e-4 (float32 statistics of the
-same scores).
+order only); float16 2e-3 (the same roundings with 3 more mantissa
+bits). lse, on max abs error: 1e-4 (float32 statistics of the same
+scores).
 
 Backward tolerances, on the worst (b, h) slice's relative error
 (``slice_rel_err``: the Frobenius norm of the error over that of the
@@ -61,7 +98,8 @@ plain result, per (b, h) slice of dq, dk and dv; a row measure does not
 fit here: with causal masking query row 0's exact dq is 0): bf16 1e-2
 (the kernels round P and dS to bf16 before their products and the
 gradients to bf16, about 2^-9 relative each; a CPU emulation of that
-rounding gives 2.4e-3); float32 1e-5 (summation order only). Training
+rounding gives 2.4e-3); float16 2e-3 (the same with 3 more mantissa
+bits); float32 1e-5 (summation order only). Training
 path: every parameter gradient within 2e-2 of the plain path's
 (``rel_err``, the Frobenius norm of the whole tensor's error over its
 own; each attention's gradient differs by up to the bf16 tolerance, and
@@ -96,10 +134,11 @@ LLAMA2_7B = dict(vocab=32000, d_model=4096, n_layers=32, n_heads=32,
 SEQ = 2048
 MAX_BATCH = 4
 N_REQUESTS = 6
-TOL_ROW = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+TOL_ROW = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}
 TOL_LSE = 1e-4
 FAULT_TILE = 64          # the kernel's key tile
-TOL_SLICE = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+TOL_SLICE = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
+             torch.float32: 1e-5}
 FAULT_MARGIN = 10.0      # a planted fault must exceed the tolerance 10x
 TOL_GRAD = 2e-2          # training path: per-parameter gradient
 TOL_LOSS = 1e-3          # training path: relative loss difference
@@ -107,6 +146,15 @@ TRAIN_BATCH = 2
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 5
 LR = 3e-4
+# Adasum (phases 8 and 9).
+TOL_DOT = 1e-5           # |dot - dot64| / (|a| |b|), and |a|^2, |b|^2
+TOL_COMBINE = {torch.float32: 1e-6, torch.bfloat16: 4e-3,
+               torch.float16: 4e-3}
+ADASUM_SIZES = (1, 1000, 2 ** 20 + 7, 4096 * 11008, 32000 * 4096)
+FAULT_BLOCK = 256 * 128  # the JAX kernel's block: BLOCK_ROWS x LANES
+DP_LAYERS = 2
+DP_STEPS = 3
+DP_RANKS = 2
 
 
 def log(msg):
@@ -232,7 +280,7 @@ def attention_bound(B, L, H, D, causal, dtype, products=2, tensors=4,
     ops = 2.0 * products * B * H * D * pairs
     esize = torch.finfo(dtype).bits // 8
     nbytes = float(tensors) * B * L * H * D * esize + stats * 4.0 * B * H * L
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", ops)
@@ -246,6 +294,16 @@ def attention_bound(B, L, H, D, causal, dtype, products=2, tensors=4,
 BWD_WORK = {"dkv": (4, 6, 2), "dq": (3, 5, 2), "function": (5, 8, 1)}
 
 
+# Lengths the kernels take since they mask a ragged last tile (the
+# serving ladder's first rungs, lengths that are not a multiple of the
+# 64-row tile) and float16; phases 2 and 5 hold both directions to them.
+RAGGED_AND_F16_CASES = [(1, 16, 32, 128, True, torch.bfloat16),
+                        (1, 1000, 32, 128, True, torch.bfloat16),
+                        (1, 2047, 32, 128, False, torch.bfloat16),
+                        (1, 1000, 8, 64, False, torch.float32),
+                        (2, SEQ, 32, 128, True, torch.float16)]
+
+
 def phase_kernel_vs_plain(fa, dev):
     cases = [(4, SEQ, 32, 128, True, torch.bfloat16),
              (2, SEQ, 32, 128, True, torch.bfloat16),
@@ -255,7 +313,8 @@ def phase_kernel_vs_plain(fa, dev):
              (1, 256, 4, 64, True, torch.float32),
              (1, 256, 4, 128, False, torch.float32),
              (1, 256, 2, 256, True, torch.float32),
-             (1, 256, 2, 256, True, torch.bfloat16)]
+             (1, 256, 2, 256, True, torch.bfloat16),
+             *RAGGED_AND_F16_CASES]
     gen = torch.Generator(device=dev).manual_seed(0)
     out = []
     for i, (B, L, H, D, causal, dtype) in enumerate(cases):
@@ -441,6 +500,83 @@ def phase_serving(fa, tfm, serving):
             "max_memory_allocated": peak}
 
 
+LADDER_MAX_LEN = 64
+LADDER_LENGTHS = (10, 30, 50)    # rungs 16, 32, 64
+
+
+def phase_serving_ladder(fa, tfm, serving):
+    """The length ladder on the card (HOROVOD_SERVING_MAX_LEN=64: rungs
+    16, 32, 64, so every served attention is a ragged tile) at
+    Llama-2-7B width and 2 layers: it warms up, answers, and each
+    answer's per-position logits (the padded tail cut off by the
+    frontend) match the plain path at the request's own length."""
+    cfg = tfm.TransformerConfig(**dict(LLAMA2_7B, n_layers=2),
+                                dtype=torch.bfloat16)
+    model = tfm.init_params(cfg, seed=6)
+
+    def forward_fn(params, tokens):
+        hidden, _ = tfm.forward(cfg, params, tokens)
+        return tfm.logits_fn(cfg, params, hidden)
+
+    env = {"HOROVOD_SERVING_MAX_BATCH": "2",
+           "HOROVOD_SERVING_MAX_LEN": str(LADDER_MAX_LEN),
+           "HOROVOD_SERVING_LATENCY_BUDGET_MS": "20",
+           "HOROVOD_SERVING_MIN_WORKERS": "1",
+           "HOROVOD_SERVING_MAX_WORKERS": "1",
+           "HOROVOD_SERVING_WORKER_TIMEOUT_S": "300"}
+    rng = np.random.RandomState(8)
+    requests = [rng.randint(0, cfg.vocab, n).astype(np.int32)
+                for n in LADDER_LENGTHS]
+    fa.launches = 0
+    fe = serving.ServingFrontend(forward_fn, (), "int32", env=env,
+                                 autoscale=False, params=model)
+    try:
+        shapes = len(fe.ladder.shapes(()))
+        deadline = time.monotonic() + 300
+        while fe.stats()["compiles"] < shapes:
+            if fe.stats()["worker_failures"] or time.monotonic() > deadline:
+                raise AssertionError(f"phase 4 ladder: warm-up failed: "
+                                     f"{fe.stats()}")
+            time.sleep(0.05)
+        rows = [f.result(timeout=300)
+                for f in [fe.submit(r) for r in requests]]
+        stats = fe.stats()
+    finally:
+        fe.close()
+    launches = fa.launches
+    errs = []
+    with torch.inference_mode(), plain_attention(fa):
+        for req, row in zip(requests, rows):
+            tokens = torch.from_numpy(req[None].astype(np.int64)).to(
+                model.embed.device)
+            ref = forward_fn(model, tokens)[0].cpu()
+            got = torch.from_numpy(np.asarray(row))
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"phase 4 ladder: answer "
+                                     f"{tuple(got.shape)}, want "
+                                     f"{tuple(ref.shape)}, finite")
+            errs.append(row_rel_err(got, ref))
+    result = {"ladder": fe.ladder.digest, "shapes": shapes,
+              "lengths": list(LADDER_LENGTHS),
+              "row_rel_err": errs, "launches": launches,
+              "stats": {k: stats[k] for k in ("completed", "failed",
+                                              "compiles", "batches")}}
+    log("phase 4 ladder: " + json.dumps(result))
+    if stats["completed"] != len(requests) or stats["failed"] \
+            or stats["worker_failures"] or stats["compiles"] != shapes:
+        raise AssertionError(f"phase 4 ladder: {stats}")
+    if max(errs) > TOL_ROW[torch.bfloat16]:
+        raise AssertionError(f"phase 4 ladder: served logits disagree with "
+                             f"the plain path: {errs}")
+    if launches != cfg.n_layers * (shapes + stats["batches"]):
+        raise AssertionError(f"phase 4 ladder: {launches} launches for "
+                             f"{shapes} warm-ups and {stats['batches']} "
+                             f"batches of {cfg.n_layers} layers")
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
 BWD_CASES = [(2, SEQ, 32, 128, True, torch.bfloat16),   # training shape
              (4, SEQ, 32, 128, True, torch.bfloat16),
              (2, SEQ, 32, 128, False, torch.bfloat16),
@@ -448,7 +584,8 @@ BWD_CASES = [(2, SEQ, 32, 128, True, torch.bfloat16),   # training shape
              (2, SEQ, 16, 256, True, torch.bfloat16),
              (1, 256, 4, 128, True, torch.float32),
              (1, 256, 2, 64, False, torch.float32),
-             (1, 256, 2, 256, True, torch.float32)]
+             (1, 256, 2, 256, True, torch.float32),
+             *RAGGED_AND_F16_CASES]
 
 
 def sdpa_backward_ms(q, k, v, do, causal):
@@ -612,6 +749,66 @@ def step_breakdown(tfm, cfg, model, optimizer, batch):
     return {p: a.elapsed_time(b) for p, a, b in zip(parts, ev, ev[1:])}
 
 
+def f32_lm_head(cfg, params, hidden):
+    """The LM head as the parent tree computed it on the card: both
+    operands copied to float32, a float32 product."""
+    return torch.einsum("bld,vd->blv", hidden.to(cfg.dtype).float(),
+                        params.embed.to(cfg.dtype).float())
+
+
+def lm_head_before_after(tfm, cfg, model, optimizer, step, batch):
+    """The tied LM head on the training shape: the card's mixed product
+    (``tfm.logits_fn``) against the float32 product it replaced, forward
+    and forward + backward (CUDA events), logits and gradients checked
+    against it; then the median of 3 steps with the float32 head swapped
+    back in, beside the steps above."""
+    gen = torch.Generator(device=model.embed.device).manual_seed(11)
+    hidden = torch.randn((TRAIN_BATCH, SEQ, cfg.d_model), generator=gen,
+                         device=model.embed.device).to(cfg.dtype)
+    heads = {"mixed": tfm.logits_fn, "f32": f32_lm_head}
+    out = {}
+    grads = {}
+    for name, head in heads.items():
+        with torch.no_grad():
+            out[f"{name}_fwd_ms"] = time_ms(
+                lambda: head(cfg, model, hidden), 10)
+        h = hidden.detach().clone().requires_grad_()
+        g = torch.randn((TRAIN_BATCH, SEQ, cfg.vocab), generator=gen,
+                        device=hidden.device) if not grads else grads["g"]
+        grads["g"] = g
+
+        def fwd_bwd():
+            model.embed.grad = None
+            h.grad = None
+            head(cfg, model, h).backward(g)
+
+        out[f"{name}_fwd_bwd_ms"] = time_ms(fwd_bwd, 5)
+        with torch.no_grad():
+            grads[f"{name}_logits"] = head(cfg, model, hidden)
+        fwd_bwd()
+        grads[name] = (h.grad.clone(), model.embed.grad.clone())
+    model.embed.grad = None
+    out["logits_rel_err"] = rel_err(grads["mixed_logits"],
+                                    grads["f32_logits"])
+    out["grad_rel_err"] = max(rel_err(a, b) for a, b in
+                              zip(grads["mixed"], grads["f32"]))
+    del grads
+    kept = tfm.logits_fn
+    tfm.logits_fn = f32_lm_head
+    try:
+        times = []
+        for _ in range(4):
+            t0 = time.monotonic()
+            float(step(model, batch)["loss"])
+            times.append(time.monotonic() - t0)
+    finally:
+        tfm.logits_fn = kept
+    out["f32_head_step_ms"] = [1e3 * t for t in times]
+    out["f32_head_median_step_ms"] = 1e3 * statistics.median(times[1:])
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_training(fa, tfm, train):
     cfg = tfm.TransformerConfig(**dict(LLAMA2_7B, n_layers=TRAIN_LAYERS),
                                 dtype=torch.bfloat16)
@@ -637,9 +834,16 @@ def phase_training(fa, tfm, train):
               "max_memory_allocated": peak, "launches": launches,
               "breakdown_ms": step_breakdown(tfm, cfg, model, optimizer,
                                              batch)}
+    result["lm_head"] = lm_head_before_after(tfm, cfg, model, optimizer,
+                                             step, batch)
     log("phase 7: " + json.dumps(result))
     want = TRAIN_LAYERS * TRAIN_STEPS
     problems = []
+    if not (result["lm_head"]["logits_rel_err"] <= 1e-5
+            and result["lm_head"]["grad_rel_err"] <= TOL_COMBINE[
+                torch.bfloat16]):
+        problems.append(f"the mixed LM head disagrees with the float32 "
+                        f"product: {result['lm_head']}")
     if not all(np.isfinite(losses)):
         problems.append("a loss is not finite")
     if not losses[-1] < losses[0]:
@@ -653,6 +857,347 @@ def phase_training(fa, tfm, train):
     return result
 
 
+def adasum_bound(n, dtype, kernel):
+    """Least time of K1 (reads a and b: 2n elements, 6 operations per
+    pair) or K2 (reads 2n, writes n: 3n elements, 3 operations per
+    element), float32 operations outside the tensor cores."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (2 if kernel == "k1" else 3) * n * esize
+    ops = (6 if kernel == "k1" else 3) * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def adasum_errors(stats, out, a, b, ref_out):
+    """K1's sums against float64 ones (|delta dot| / (|a| |b|); |a|^2 and
+    |b|^2 relative) and K2's output against the plain result (norm of
+    the error over the plain result's); an absolute error where the
+    reference is zero."""
+    ad, bd = a.reshape(-1).double(), b.reshape(-1).double()
+    dot, asq, bsq = float(ad @ bd), float(ad @ ad), float(bd @ bd)
+    got = [float(x) for x in stats[2:5].double().cpu()]
+
+    def rel(x, ref, scale):
+        return abs(x - ref) / scale if scale else abs(x - ref)
+
+    ref_norm = float(ref_out.float().norm())
+    return {"dot": rel(got[0], dot, (asq * bsq) ** 0.5),
+            "asq": rel(got[1], asq, asq), "bsq": rel(got[2], bsq, bsq),
+            "out": rel_err(out, ref_out) if ref_norm
+            else float(out.float().abs().max())}
+
+
+def adasum_check_ratio(errs, dtype):
+    """The worst error over its tolerance: <= 1 passes."""
+    return max(errs["dot"] / TOL_DOT, errs["asq"] / TOL_DOT,
+               errs["bsq"] / TOL_DOT, errs["out"] / TOL_COMBINE[dtype])
+
+
+def planted_adasum_faults(ak, a, b):
+    """(stats, out) of two faulty copies of the plain version, each a bug
+    the kernels can have: ``k1_tail_block_dropped`` leaves the last block
+    of the JAX kernel's grid (FAULT_BLOCK elements, or the ragged rest)
+    out of K1's sums; ``k2_ca_for_both`` scales b by ca in K2."""
+    n = a.numel()
+    keep = ((n - 1) // FAULT_BLOCK) * FAULT_BLOCK
+    af, bf = a.reshape(-1)[:keep], b.reshape(-1)[:keep]
+    dropped = ak.adasum_partials_plain(af, bf)
+    good = ak.adasum_partials_plain(a, b)
+    both = good.clone()
+    both[1] = both[0]
+    return {"k1_tail_block_dropped": (
+                dropped, ak.adasum_scaled_add_plain(dropped, a, b)),
+            "k2_ca_for_both": (good, ak.adasum_scaled_add_plain(both, a,
+                                                                 b))}
+
+
+def adasum_inputs(dev, n, dtype, seed, kind="random"):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(n, generator=gen, device=dev)
+    if kind == "zero":
+        return torch.zeros(n, device=dev).to(dtype), a.to(dtype)
+    if kind == "orthogonal":
+        b = torch.zeros(n, device=dev)
+        b[n // 2:] = a[n // 2:]
+        a[n // 2:] = 0
+        return a.to(dtype), b.to(dtype)
+    if kind == "opposite":
+        a = a.to(dtype)
+        return a, -a
+    b = 0.3 * a + torch.randn(n, generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype)
+
+
+def phase_adasum_kernels(ak, dev):
+    cases = [(n, dtype, "random") for n in ADASUM_SIZES
+             for dtype in (torch.float16, torch.bfloat16, torch.float32)]
+    cases += [(4096, torch.float16, kind)
+              for kind in ("zero", "orthogonal", "opposite")]
+    out = []
+    for i, (n, dtype, kind) in enumerate(cases):
+        a, b = adasum_inputs(dev, n, dtype, seed=i, kind=kind)
+        stats = ak.adasum_partials(a, b)
+        got = ak.adasum_scaled_add(stats, a, b)
+        stats2 = ak.adasum_partials(a, b)
+        got2 = ak.adasum_scaled_add(stats2, a, b)
+        torch.cuda.synchronize()
+        ref = ak.adasum_pair_combine_plain(a, b)
+        errs = adasum_errors(stats, got, a, b, ref)
+        case = {"n": n, "dtype": str(dtype).replace("torch.", ""),
+                "kind": kind, "errors": errs,
+                "coeffs": stats[:2].tolist(),
+                "max_abs_err": max_abs_err(got, ref),
+                "coeff_max_abs_err": max_abs_err(
+                    stats[:2], ak.adasum_partials_plain(a, b)[:2]),
+                "bitwise_repeatable": bool(torch.equal(stats, stats2)
+                                           and torch.equal(got, got2))}
+        problems = []
+        if adasum_check_ratio(errs, dtype) > 1:
+            problems.append(f"errors {errs}")
+        if not case["bitwise_repeatable"]:
+            problems.append("two runs differ")
+        if kind == "orthogonal" and not torch.equal(
+                got.float(), (a.float() + b.float()).to(dtype).float()):
+            problems.append("orthogonal vectors do not give a + b")
+        if kind == "opposite" and float(got.float().abs().max()) != 0.0:
+            problems.append("a = -b does not give 0")
+        if kind == "zero" and stats[:2].tolist() != [1.0, 1.0]:
+            problems.append(f"zero-norm guard gives {stats[:2].tolist()}")
+        if problems:
+            raise AssertionError(f"phase 8: n={n} {dtype} {kind}: "
+                                 + "; ".join(problems))
+        if n == 4096 * 11008 and dtype == torch.float32:
+            faults = {}
+            for name, (fs, fo) in planted_adasum_faults(ak, a, b).items():
+                faults[name] = adasum_check_ratio(
+                    adasum_errors(fs, fo, a, b, ref), dtype)
+            if not all(r >= FAULT_MARGIN for r in faults.values()):
+                raise AssertionError(f"phase 8: the check does not reject "
+                                     f"every planted fault by "
+                                     f"{FAULT_MARGIN}x: {faults}")
+            case["planted_fault_check_ratio"] = faults
+        if n >= 4096 * 11008 and dtype == torch.float16:
+            for kernel, fn, plain in (
+                    ("k1", lambda: ak.adasum_partials(a, b),
+                     lambda: ak.adasum_partials_plain(a, b)),
+                    ("k2", lambda: ak.adasum_scaled_add(stats, a, b),
+                     lambda: ak.adasum_scaled_add_plain(stats, a, b))):
+                bound_ms, bound_by = adasum_bound(n, dtype, kernel)
+                ms = time_ms(fn, 20)
+                case[kernel] = {"ms": ms, "plain_ms": time_ms(plain, 5),
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "roofline_share": bound_ms / ms}
+        log("phase 8: " + json.dumps(case))
+        out.append(case)
+        del a, b, stats, got, stats2, got2, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _params_digest(model):
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def dp_rank_main(rank, port, results, device, cfg_kw, seq):
+    """One rank of phase 9, in a spawned process: the port's
+    init -> broadcast_parameters -> DistributedOptimizer(adamw,
+    op=Adasum, compression=fp16) -> steps, with the gather and the fold
+    timed around the port's own functions. ``device``, ``cfg_kw`` and
+    ``seq`` are the card, the model's config and the sequence length
+    (the tests rehearse the phase on the CPU at a small size)."""
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    try:
+        os.environ.update({
+            "HOROVOD_RANK": str(rank), "HOROVOD_SIZE": str(DP_RANKS),
+            "HOROVOD_LOCAL_RANK": str(rank),
+            "HOROVOD_LOCAL_SIZE": str(DP_RANKS),
+            "HOROVOD_COORDINATOR_ADDR": f"localhost:{port}",
+            "HOROVOD_ADASUM_PALLAS": "1",
+            "HOROVOD_GLOO_TIMEOUT_SECONDS": "300"})
+        sys.path.insert(0, REPO)
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.models import transformer as tfm
+        from horovod_tpu_torch.ops import adasum as adasum_mod
+        from horovod_tpu_torch.ops import adasum_kernels as ak
+        from horovod_tpu_torch.parallel import train
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if cuda:
+            torch.cuda.set_device(torch.device(device))
+        hvd.init()
+        cfg = tfm.TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
+        model = tfm.init_params(cfg, seed=rank, device=device)
+        before = _params_digest(model)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            train.adamw(model.parameters(), LR),
+            named_parameters=model.named_parameters(), op=hvd.Adasum,
+            compression=hvd.Compression.fp16)
+        timing = {"gather_s": 0.0, "fold_ms": 0.0}
+        probe = {}
+        gather, fold = adasum_mod.gather_rows, adasum_mod._tree_fold
+
+        def timed_gather(flat, pset):
+            sync()
+            t0 = time.monotonic()
+            rows = gather(flat, pset)
+            sync()
+            timing["gather_s"] += time.monotonic() - t0
+            return rows
+
+        def timed_fold(rows, use_pallas=False):
+            t0 = time.monotonic()
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+            red = fold(rows, use_pallas)
+            if cuda:
+                end.record()
+                torch.cuda.synchronize()
+                timing["fold_ms"] += start.elapsed_time(end)
+            else:
+                timing["fold_ms"] += 1e3 * (time.monotonic() - t0)
+            if "rows" not in probe and rows[0].numel() == \
+                    cfg.d_ff * cfg.d_model:
+                probe["rows"] = [r.clone() for r in rows]
+                probe["red"] = red.clone()
+            return red
+
+        adasum_mod.gather_rows, adasum_mod._tree_fold = timed_gather, \
+            timed_fold
+        steps = []
+        digests = [_params_digest(model)]
+        ak.launches_partials = ak.launches_scaled_add = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for step in range(DP_STEPS):
+            tokens = np.random.RandomState(100 * rank + step).randint(
+                0, cfg.vocab, (1, seq)).astype(np.int64)
+            batch = {"tokens": torch.from_numpy(tokens).to(device),
+                     "targets": torch.from_numpy(
+                         np.roll(tokens, -1, axis=1)).to(device)}
+            timing.update(gather_s=0.0, fold_ms=0.0)
+            opt.zero_grad()
+            sync()
+            t0 = time.monotonic()
+            loss = tfm.loss_fn(cfg, model, batch)
+            loss.backward()
+            sync()
+            t1 = time.monotonic()
+            opt.step()
+            sync()
+            t2 = time.monotonic()
+            steps.append({"loss": float(loss.detach()),
+                          "forward_backward_ms": 1e3 * (t1 - t0),
+                          "gather_ms": 1e3 * timing["gather_s"],
+                          "fold_ms": timing["fold_ms"],
+                          "adamw_ms": 1e3 * (t2 - t1),
+                          "step_ms": 1e3 * (t2 - t0)})
+            digests.append(_params_digest(model))
+        launches = (ak.launches_partials, ak.launches_scaled_add)
+        plain = ak.adasum_pair_combine_plain(*probe["rows"])
+        payload = {
+            "backend": hvd.backend(), "rank": hvd.rank(),
+            "n_parameters": sum(p.numel() for p in model.parameters()),
+            "n_grad_tensors": len(list(model.parameters())),
+            "wire_bytes": 2 * sum(p.numel() for p in model.parameters()),
+            "digest_before_broadcast": before, "digests": digests,
+            "steps": steps, "launches": launches,
+            "probe_rel_err": rel_err(probe["red"], plain),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if cuda else None)}
+        status = "ok"
+        hvd.shutdown()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        payload = traceback.format_exc()
+    finally:
+        results.put((rank, status, payload))
+
+
+def phase_adasum_training(device="cuda:0", cfg_kw=None, seq=SEQ,
+                          timeout=900.0):
+    import multiprocessing as mp
+    import queue
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, n_layers=DP_LAYERS)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=dp_rank_main,
+                         args=(r, port, results, device, cfg_kw, seq))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < DP_RANKS and time.monotonic() < deadline:
+            try:
+                rank, status, payload = results.get(timeout=1.0)
+            except queue.Empty:
+                if all(not p.is_alive() for p in procs):
+                    break
+                continue
+            got[rank] = (status, payload)
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()) + 10)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    failed = {r: v for r, (st, v) in got.items() if st != "ok"}
+    if failed or len(got) != DP_RANKS:
+        raise AssertionError(f"phase 9: ranks {sorted(got)} reported; "
+                             f"failures: {failed}")
+    ranks = [got[r][1] for r in range(DP_RANKS)]
+    for r in ranks:
+        log("phase 9: " + json.dumps(r))
+    problems = []
+    if any(r["backend"] != "gloo" for r in ranks):
+        problems.append("the two ranks on one card are not on gloo")
+    if ranks[0]["digest_before_broadcast"] == \
+            ranks[1]["digest_before_broadcast"]:
+        problems.append("rank 1 did not start from other weights")
+    for step in range(DP_STEPS + 1):
+        if len({r["digests"][step] for r in ranks}) != 1:
+            problems.append(f"parameters differ across ranks after "
+                            f"{'the broadcast' if step == 0 else f'step {step - 1}'}")
+    for r in ranks:
+        if not all(np.isfinite(s["loss"]) for s in r["steps"]):
+            problems.append(f"rank {r['rank']}: a loss is not finite")
+        # A CPU rehearsal runs the plain versions, which count nothing.
+        want = r["n_grad_tensors"] * DP_STEPS if device.startswith(
+            "cuda") else 0
+        if r["launches"] != (want, want):
+            problems.append(f"rank {r['rank']}: launches {r['launches']}, "
+                            f"want {want} of K1 and of K2")
+        if r["probe_rel_err"] > TOL_COMBINE[torch.float16]:
+            problems.append(f"rank {r['rank']}: reduced FFN gradient vs the "
+                            f"plain fold: {r['probe_rel_err']}")
+    if problems:
+        raise AssertionError("phase 9: " + "; ".join(problems))
+    return ranks
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -660,6 +1205,8 @@ def main():
     sys.path.insert(0, REPO)
     from horovod_tpu_torch import serving
     from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import _cuda_build
+    from horovod_tpu_torch.ops import adasum_kernels as ak
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.parallel import train
 
@@ -670,9 +1217,9 @@ def main():
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.monotonic()
-    paths = fa.build(verbose=True)
+    paths = _cuda_build.build(verbose=True)
     for name in paths:
-        fa.load_library(name)
+        _cuda_build.load_library(name)
     log(f"phase 1: built {[os.path.relpath(p, REPO) for p in paths.values()]}"
         f" in {time.monotonic() - t0:.1f} s")
 
@@ -683,9 +1230,12 @@ def main():
         text=True, timeout=60).stdout.strip())
     path = phase_path_vs_plain(fa, tfm, dev)
     served = phase_serving(fa, tfm, serving)
+    served["length_ladder"] = phase_serving_ladder(fa, tfm, serving)
     bwd_cases = phase_backward_vs_plain(fa, dev)
     train_path = phase_training_path_vs_plain(fa, tfm, dev)
     trained = phase_training(fa, tfm, train)
+    adasum_cases = phase_adasum_kernels(ak, dev)
+    dp = phase_adasum_training()
 
     main_case = cases[0]                     # (4, 2048, 32, 128) causal
     bwd_case = bwd_cases[0]                  # (2, 2048, 32, 128) causal
@@ -737,7 +1287,35 @@ def main():
     backward[0].update(cases=bwd_cases, training_path_vs_plain=train_path,
                        training=trained,
                        function=bwd_case["function"])
-    print(json.dumps({"kernels": [forward, *backward]}), flush=True)
+    ffn = next(c for c in adasum_cases if c["n"] == 4096 * 11008
+               and c["dtype"] == "float16")
+    embed = next(c for c in adasum_cases if c["n"] == 32000 * 4096
+                 and c["dtype"] == "float16")
+    adasum = []
+    for name, key, line, err in (
+            ("adasum_partials", "k1", 50, "coeff_max_abs_err"),
+            ("adasum_scaled_add", "k2", 68, "max_abs_err")):
+        adasum.append({
+            "name": name,
+            "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/adasum_pair_combine.cu",
+            "replaces": f"horovod_tpu/ops/pallas_kernels.py:{line}",
+            "launches": sum(r["launches"][0 if key == "k1" else 1]
+                            for r in dp),
+            "launches_per_rank_per_step": dp[0]["n_grad_tensors"],
+            "max_abs_err": ffn[err],
+            "ms": ffn[key]["ms"],
+            "plain_ms": ffn[key]["plain_ms"],
+            "bound_ms": ffn[key]["bound_ms"],
+            "bound_by": ffn[key]["bound_by"],
+            "library_ms": None,
+            "n": ffn["n"], "dtype": ffn["dtype"],
+            "at_embedding_size": embed[key],
+            "card": card,
+        })
+    adasum[0].update(cases=adasum_cases, training=dp)
+    print(json.dumps({"kernels": [forward, *backward, *adasum]}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

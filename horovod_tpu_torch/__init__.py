@@ -1,7 +1,7 @@
 """horovod_tpu_torch — the PyTorch and CUDA port of horovod_tpu, grown
 slice by slice beside the JAX package, which stays the reference.
 
-Two slices so far. Serving: ``ServingFrontend`` batches requests onto
+Three slices so far. Serving: ``ServingFrontend`` batches requests onto
 padded ladder shapes and runs a two-argument forward on a worker that
 owns one ``torch.device``. Training on one device:
 ``parallel.train.build_train_step`` runs the loss (``models.transformer.
@@ -9,9 +9,13 @@ loss_fn``), its backward and an AdamW update (``parallel.train.adamw``,
 optax.adamw's settings). The model sends every layer's attention through
 the autograd Function ``ops.flash_attention.FlashAttention``: on the
 card, the hand-written CUDA flash-attention forward and its dK/dV and
-dQ backward kernels. Entry points run on the card unless the caller
-passes ``device="cpu"``, and raise when there is no card and no device
-was given.
+dQ backward kernels. Horovod's data-parallel loop on
+``torch.distributed``: ``init``, ``broadcast_parameters``, the eager
+collectives (Average, Sum and Adasum on the gather route, whose pair
+combine is the hand-written CUDA kernels K1 and K2 of
+``ops.adasum_kernels``) and ``DistributedOptimizer``. Entry points run on
+the card unless the caller passes ``device="cpu"``, and raise when there
+is no card and no device was given.
 
 The package imports torch and numpy, never jax and nothing of
 horovod_tpu: framework-neutral modules (config, logging, metrics,
@@ -19,6 +23,10 @@ faults, journal, telemetry, tracing) are copies, pinned against the
 reference by the tests.
 """
 
+from .common.basics import (  # noqa: F401
+    backend, init, is_initialized, local_rank, local_size, rank, shutdown,
+    size,
+)
 from .common.exceptions import (  # noqa: F401
     HorovodInternalError, ReplicaDivergenceError,
 )
@@ -26,9 +34,20 @@ from .models.transformer import (  # noqa: F401
     Transformer, TransformerConfig, forward, init_params, logits_fn,
     loss_fn, params_from_jax, params_to_jax, vocab_parallel_xent,
 )
+from .ops.collective_ops import (  # noqa: F401
+    Adasum, Average, Sum, allreduce, allreduce_, allreduce_async,
+    allreduce_async_, broadcast, broadcast_, broadcast_async,
+    broadcast_async_, broadcast_object, grouped_allreduce,
+    grouped_allreduce_async, poll, synchronize,
+)
+from .ops.compression import Compression  # noqa: F401
 from .ops.flash_attention import (  # noqa: F401
     FlashAttention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain,
+)
+from .optim.distributed_optimizer import DistributedOptimizer  # noqa: F401
+from .optim.functions import (  # noqa: F401
+    broadcast_optimizer_state, broadcast_parameters,
 )
 from .parallel.ring_attention import attention  # noqa: F401
 from .parallel.train import adamw, build_train_step  # noqa: F401

@@ -24,43 +24,17 @@ raises ValueError before any launch.
 Where they run is decided by where the tensors lie, and nowhere else:
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. The kernels are built from the repo's sources with nvcc at first
-use, one library per source, into ``horovod_tpu_torch/_build/``.
+use, one library per source, into ``horovod_tpu_torch/_build/``
+(``ops/_cuda_build.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-HEADERS = ("flash_common.cuh",)
-
-_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# causal, scale, stream
-_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-# Library (= source file stem) -> its C entry points' argument types.
-LIBRARIES = {
-    "flash_attention_fwd": {
-        "hvd_flash_attention_fwd": [_PTR] * 5 + [_INT] * 5 + [_LL] * 9
-        + _TAIL},
-    "flash_attention_bwd": {
-        "hvd_flash_attention_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [_LL] * 12
-        + _TAIL,
-        "hvd_flash_attention_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [_LL] * 12
-        + _TAIL},
-}
+from ._cuda_build import load_library
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
@@ -71,9 +45,6 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 launches = 0
 launches_dkv = 0
 launches_dq = 0
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -346,79 +317,3 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, causal: bool,
               causal, scale)
     launches_dq += 1
     return dq
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "flash_attention: nvcc not found (PATH, CUDA_HOME or "
-            "/usr/local/cuda/bin); the CUDA kernels cannot be built")
-    return path
-
-
-def _source_path(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
-
-
-def library_path(name: str) -> str:
-    """Where the build of library ``name`` goes: the file name carries
-    the hash of its source, the shared headers and the flags, so an
-    edited source is rebuilt."""
-    tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (_source_path(name),
-                 *(os.path.join(CSRC_DIR, h) for h in HEADERS)):
-        with open(path, "rb") as f:
-            tag.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{tag.hexdigest()[:16]}.so")
-
-
-def build(verbose: bool = False) -> Dict[str, str]:
-    """Compile every library whose current build is missing, one nvcc
-    per source, all started together; concurrent builds serialise on
-    a lock file. Returns each library's path."""
-    paths = {name: library_path(name) for name in LIBRARIES}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        jobs = []
-        for name, path in paths.items():
-            if os.path.exists(path):
-                continue
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _source_path(name)]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            jobs.append((name, path, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        failed = []
-        for name, path, tmp, proc in jobs:
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name} ({proc.returncode}):\n{out}{err}")
-                continue
-            if verbose:
-                print(f"nvcc {name}:\n{out}{err}", flush=True)
-            os.replace(tmp, path)
-        if failed:
-            raise RuntimeError("flash_attention: nvcc failed for "
-                               + "\n".join(failed))
-    return paths
-
-
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load library ``name`` once."""
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(build()[name])
-            for fn_name, argtypes in LIBRARIES[name].items():
-                fn = getattr(lib, fn_name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = argtypes
-            _libs[name] = lib
-    return _libs[name]

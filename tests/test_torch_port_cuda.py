@@ -1,7 +1,10 @@
 """horovod_tpu_torch's CUDA kernels on the card: the flash-attention
 forward and its dK/dV and dQ backward kernels against their plain
-versions, their launch counters, attention() on CUDA tensors, and the
-serving and training paths through the kernels.
+versions (ragged lengths and float16 included), the Adasum kernels K1
+and K2 against theirs, their launch counters, attention() on CUDA
+tensors, the tied LM head's mixed product against the float32 one, and
+the serving (both ladders), training and two-rank gloo Adasum paths
+through the kernels.
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips
 without an NVIDIA card. This file imports no JAX, so it also runs
@@ -17,7 +20,9 @@ rounding of P before the P V product, and of o); float32 1e-5
 chip_smoke's worst (b, h) slice relative error of dq, dk and dv, and
 model gradients (kernels against the plain versions) on its
 per-parameter relative error: chip_smoke's TOL_SLICE and TOL_GRAD, for
-the reasons it gives.
+the reasons it gives. Adasum: chip_smoke's TOL_DOT and TOL_COMBINE
+(phase 8). The LM head: logits 1e-5 (float32 sums in another order),
+gradients one bf16 rounding (TOL_COMBINE[bf16]).
 """
 
 import time
@@ -29,6 +34,7 @@ import torch
 import chip_smoke
 from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.ops import adasum_kernels as ak
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import ring_attention as ra
 from horovod_tpu_torch.parallel import train
@@ -279,3 +285,179 @@ def test_one_training_step_through_the_kernels(card):
         b + cfg.n_layers for b in before)
     assert all(not torch.equal(p, b)
                for p, b in zip(model.parameters(), before_params))
+
+
+# ---------------------------------------------------------------------------
+# Ragged lengths and float16 (the flash kernels mask a ragged last tile).
+
+@pytest.mark.parametrize("L,dtype,causal", [
+    (16, torch.bfloat16, True), (1000, torch.bfloat16, True),
+    (2047, torch.bfloat16, False), (100, torch.bfloat16, False),
+    (1000, torch.float16, True), (2048, torch.float16, True),
+    (1000, torch.float32, False)])
+def test_kernels_take_ragged_lengths_and_float16(card, L, dtype, causal):
+    q, k, v, do = _bwd_inputs(card, (1, L, 4, 128), dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    assert _rel(o, o_ref) <= chip_smoke.TOL_ROW[dtype]
+    assert _abs(lse, lse_ref) <= TOL_LSE
+    assert chip_smoke.grads_rel_err(got, ref) <= chip_smoke.TOL_SLICE[dtype]
+
+
+def test_serving_length_ladder_on_the_card(card):
+    """HOROVOD_SERVING_MAX_LEN=64: rungs 16, 32 and 64 warm up and
+    answer through the kernel."""
+    cfg = tfm.TransformerConfig(vocab=512, d_model=256, n_layers=2,
+                                n_heads=4, n_kv_heads=2, head_dim=64,
+                                d_ff=512, max_seq=64)
+    model = tfm.init_params(cfg, seed=0)
+
+    def forward_fn(params, tokens):
+        hidden, _ = tfm.forward(cfg, params, tokens)
+        return tfm.logits_fn(cfg, params, hidden)
+
+    env = {"HOROVOD_SERVING_MAX_BATCH": "2",
+           "HOROVOD_SERVING_MAX_LEN": "64",
+           "HOROVOD_SERVING_LATENCY_BUDGET_MS": "20",
+           "HOROVOD_SERVING_MAX_WORKERS": "1"}
+    fa.launches = 0
+    fe = serving.ServingFrontend(forward_fn, (), "int32", env=env,
+                                 autoscale=False, params=model)
+    try:
+        rng = np.random.RandomState(1)
+        futs = [fe.submit(rng.randint(0, 512, n)) for n in (10, 30, 50)]
+        rows = [f.result(timeout=120) for f in futs]
+        s = fe.stats()
+    finally:
+        fe.close()
+    assert s["completed"] == 3 and s["failed"] == 0
+    assert s["compiles"] == 6 and not s["worker_failures"]
+    assert [r.shape for r in rows] == [(10, 512), (30, 512), (50, 512)]
+    assert fa.launches == cfg.n_layers * (6 + s["batches"])
+
+
+# ---------------------------------------------------------------------------
+# The tied LM head's mixed product (aten::mm.dtype) on the card.
+
+def test_tied_head_matches_the_float32_product(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    h = torch.randn((2, 256, 512), generator=gen, device=card).to(
+        torch.bfloat16).requires_grad_()
+    e = torch.randn((1000, 512), generator=gen, device=card).to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn((2, 256, 1000), generator=gen, device=card)
+    cfg = tfm.TransformerConfig(vocab=1000, d_model=512)
+    params = type("P", (), {"embed": e})()
+    got = tfm.logits_fn(cfg, params, h)
+    got.backward(g)
+    dh, de = h.grad.clone(), e.grad.clone()
+    h.grad = e.grad = None
+    want = chip_smoke.f32_lm_head(cfg, params, h)
+    want.backward(g)
+    assert got.dtype == torch.float32
+    assert chip_smoke.rel_err(got, want) <= 1e-5
+    assert chip_smoke.rel_err(dh, h.grad) <= \
+        chip_smoke.TOL_COMBINE[torch.bfloat16]
+    assert chip_smoke.rel_err(de, e.grad) <= \
+        chip_smoke.TOL_COMBINE[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# Adasum K1/K2 against their plain versions (phase 8's cases, smaller),
+# and a two-rank gloo fold on the card.
+
+@pytest.mark.parametrize("n", [1, 1000, 2 ** 20 + 7])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32])
+def test_adasum_kernels_match_plain(card, n, dtype):
+    a, b = chip_smoke.adasum_inputs(card, n, dtype, seed=n)
+    before = (ak.launches_partials, ak.launches_scaled_add)
+    stats = ak.adasum_partials(a, b)
+    out = ak.adasum_scaled_add(stats, a, b)
+    again = ak.adasum_pair_combine(a, b)
+    torch.cuda.synchronize()
+    assert (ak.launches_partials, ak.launches_scaled_add) == tuple(
+        x + 2 for x in before)
+    ref = ak.adasum_pair_combine_plain(a, b)
+    errs = chip_smoke.adasum_errors(stats, out, a, b, ref)
+    assert chip_smoke.adasum_check_ratio(errs, dtype) <= 1, errs
+    assert torch.equal(out, again)
+    # With the same coefficients K2 is the plain scaled add, bitwise.
+    assert torch.equal(out, ak.adasum_scaled_add_plain(stats, a, b))
+
+
+@pytest.mark.parametrize("kind", ["zero", "orthogonal", "opposite"])
+def test_adasum_kernels_special_cases(card, kind):
+    a, b = chip_smoke.adasum_inputs(card, 4096, torch.float16, 0, kind)
+    out = ak.adasum_pair_combine(a, b)
+    if kind == "opposite":
+        assert float(out.float().abs().max()) == 0.0
+    else:
+        assert torch.equal(out, a + b)
+
+
+def test_adasum_kernels_take_unaligned_views_and_write_into_a(card):
+    a, b = chip_smoke.adasum_inputs(card, 4099, torch.bfloat16, 1)
+    a1, b1 = a[1:], b[1:]                   # 2 bytes off the 16-byte grid
+    got = ak.adasum_pair_combine(a1, b1)
+    ref = ak.adasum_pair_combine_plain(a1, b1)
+    assert chip_smoke.rel_err(got, ref) <= \
+        chip_smoke.TOL_COMBINE[torch.bfloat16]
+    want = ak.adasum_pair_combine(a, b)
+    out = ak.adasum_pair_combine(a, b, out=a)
+    assert out is a and torch.equal(a, want)
+
+
+def _gloo_adasum_rank(rank, store, results):
+    import datetime
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=60))
+        hvd.init(config_overrides={"HOROVOD_ADASUM_PALLAS": "1"})
+        x = chip_smoke.adasum_inputs(torch.device("cuda", 0), 2 ** 20 + 7,
+                                     torch.float32, seed=rank)[0]
+        out = hvd.allreduce(x, op=hvd.Adasum,
+                            compression=hvd.Compression.fp16)
+        # numpy, not a tensor: a tensor travels as shared memory that
+        # dies with this process.
+        results.put((rank, "ok", (out.cpu().numpy(), ak.launches_partials,
+                                  ak.launches_scaled_add)))
+        hvd.shutdown()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def test_two_rank_gloo_adasum_fold_on_the_card(card, tmp_path):
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_adasum_rank,
+                         args=(r, str(tmp_path / "store"), results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict((r, (s, v)) for r, s, v in
+                   (results.get(timeout=120) for _ in range(2)))
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    assert all(s == "ok" for s, _ in got.values()), got
+    (out0, k1, k2), (out1, _, _) = got[0][1], got[1][1]
+    assert (k1, k2) == (1, 1)
+    np.testing.assert_array_equal(out0, out1)
+    xs = [chip_smoke.adasum_inputs(card, 2 ** 20 + 7, torch.float32,
+                                   seed=r)[0].half() for r in range(2)]
+    ref = ak.adasum_pair_combine_plain(*xs).float().cpu()
+    assert chip_smoke.rel_err(torch.from_numpy(out0), ref) <= \
+        chip_smoke.TOL_COMBINE[torch.float16]

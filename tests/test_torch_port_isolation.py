@@ -130,3 +130,63 @@ def test_import_loads_neither_jax_nor_the_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
+
+
+def _port_modules():
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)
+        if rel.startswith("horovod_tpu_torch"):
+            yield rel[:-3].replace(os.sep, ".").replace(".__init__", "")
+
+
+def test_every_module_of_the_port_imports_without_jax():
+    modules = sorted(_port_modules())
+    for name in ("horovod_tpu_torch.common.basics",
+                 "horovod_tpu_torch.common.topology",
+                 "horovod_tpu_torch.ops.adasum",
+                 "horovod_tpu_torch.ops.adasum_kernels",
+                 "horovod_tpu_torch.ops.collective_ops",
+                 "horovod_tpu_torch.ops.compression",
+                 "horovod_tpu_torch.ops.process_set",
+                 "horovod_tpu_torch.ops._cuda_build",
+                 "horovod_tpu_torch.optim.functions",
+                 "horovod_tpu_torch.optim.distributed_optimizer"):
+        assert name in modules, name
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+# function copies: (port module, reference module, function) -> the
+# declared replacements that turn the reference's source into the port's.
+DECLARED_FUNCTIONS = {
+    ("ops/adasum.py", "ops/adasum.py", "adasum_reference"): [
+        ('"""Pure-numpy model of the tree fold, for tests."""',
+         '"""Pure-numpy model of the tree fold, for tests (a copy of the\n'
+         '    reference\'s, l.466)."""')],
+}
+
+
+def _function_source(path, name):
+    text = _read(*path.split("/"))
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{name} not in {path}")
+
+
+@pytest.mark.parametrize("key", sorted(DECLARED_FUNCTIONS))
+def test_copied_function_differs_only_as_declared(key):
+    port, ref, name = key
+    expect = _function_source(f"horovod_tpu/{ref}", name)
+    for old, new in DECLARED_FUNCTIONS[key]:
+        assert old in expect
+        expect = expect.replace(old, new)
+    assert _function_source(f"horovod_tpu_torch/{port}", name) == expect

@@ -1,8 +1,10 @@
 """chip_smoke.py's checks, on the CPU: its kernel-vs-plain measures
 (the forward's worst row, the backward's worst (b, h) slice) admit the
 bf16 rounding an honest flash kernel does and reject the faults it
-plants (the backward's by 10x its tolerance), and without a CUDA device
-it exits non-zero with no result.
+plants (the backward's by 10x its tolerance); its Adasum check admits
+the plain version and rejects both planted faults by 10x; phase 9's two
+ranks rehearse on gloo and the CPU at a small size; and without a CUDA
+device it exits non-zero with no result.
 """
 
 import numpy as np
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
+from horovod_tpu_torch.ops import adasum_kernels as ak
 from horovod_tpu_torch.ops import flash_attention as fa
 
 SHAPE = (2, 256, 2, 64)
@@ -123,3 +126,58 @@ def test_slice_rel_err_is_per_slice():
     got[:, :, 0] *= 1.5                       # small next to max |ref|
     assert chip_smoke.slice_rel_err(got, ref) == pytest.approx(0.5)
     assert chip_smoke.rel_err(got, ref) < 0.01
+
+
+# Adasum (phases 8 and 9).
+
+def _adasum_pair(n, seed, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    a = rng.randn(n).astype(np.float32)
+    b = (0.3 * a + rng.randn(n)).astype(np.float32)
+    return torch.from_numpy(a).to(dtype), torch.from_numpy(b).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_adasum_check_admits_the_plain_version(dtype):
+    a, b = _adasum_pair(3 * chip_smoke.FAULT_BLOCK + 5, seed=1, dtype=dtype)
+    ref = ak.adasum_pair_combine_plain(a, b)
+    errs = chip_smoke.adasum_errors(ak.adasum_partials_plain(a, b), ref,
+                                    a, b, ref)
+    assert chip_smoke.adasum_check_ratio(errs, dtype) <= 0.1, errs
+
+
+def test_adasum_check_rejects_planted_faults():
+    a, b = _adasum_pair(40 * chip_smoke.FAULT_BLOCK, seed=2)
+    ref = ak.adasum_pair_combine_plain(a, b)
+    faults = chip_smoke.planted_adasum_faults(ak, a, b)
+    assert set(faults) == {"k1_tail_block_dropped", "k2_ca_for_both"}
+    for name, (stats, out) in faults.items():
+        ratio = chip_smoke.adasum_check_ratio(
+            chip_smoke.adasum_errors(stats, out, a, b, ref), torch.float32)
+        assert ratio >= chip_smoke.FAULT_MARGIN, (name, ratio)
+
+
+def test_adasum_bound_is_bytes():
+    ms, by = chip_smoke.adasum_bound(4096 * 11008, torch.float16, "k1")
+    assert by == "bytes" and ms == pytest.approx(
+        1e3 * 2 * 4096 * 11008 * 2 / chip_smoke.PEAK_BYTES)
+    ms, by = chip_smoke.adasum_bound(32000 * 4096, torch.float16, "k2")
+    assert by == "bytes" and ms == pytest.approx(
+        1e3 * 3 * 32000 * 4096 * 2 / chip_smoke.PEAK_BYTES)
+
+
+def test_phase_9_rehearses_on_the_cpu():
+    """Phase 9's two ranks at a small size on gloo and the CPU: the
+    broadcast and every step leave the ranks bitwise equal, and the
+    reduced FFN gradient matches the plain fold (no launches: the CPU
+    runs the plain versions)."""
+    ranks = chip_smoke.phase_adasum_training(
+        device="cpu", cfg_kw=dict(vocab=128, d_model=32, n_layers=2,
+                                  n_heads=2, n_kv_heads=2, head_dim=16,
+                                  d_ff=64, max_seq=32), seq=32, timeout=90)
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert all(r["backend"] == "gloo" and r["launches"] == (0, 0)
+               and r["n_grad_tensors"] == 20 for r in ranks)
+    assert ranks[0]["digests"] == ranks[1]["digests"]
+    assert len(ranks[0]["steps"]) == chip_smoke.DP_STEPS
