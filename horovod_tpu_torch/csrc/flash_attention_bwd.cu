@@ -20,7 +20,9 @@
 // dv are written contiguous in the inputs' dtype. Any L >= 1: the last
 // query and key tiles may be ragged; their missing rows are zero-filled
 // in shared memory, P is zero for queries or keys at or past L, and rows
-// at or past L are not stored.
+// at or past L are not stored. Those guards are a second instantiation
+// (kRagged), launched only when L % 64 != 0, so a whole number of tiles
+// runs the unguarded loops.
 //
 // What bounds it on an H100: at the training shape (L = 2048, D = 128)
 // dK/dV does four products (8*D operations per visible (query, key)
@@ -76,7 +78,7 @@ constexpr int kDkvSplit = D == 256 ? 2 : 1;
 // dK/dV, bf16 or f16 (T): one CTA per (key tile, h, b); each group of four
 // warps holds the tile's 64 keys, 16 per warp, and walks the query tiles.
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, bool kRagged>
 __global__ void __launch_bounds__(128 * kDkvSplit<D>)
     flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -107,10 +109,10 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
   const int b = blockIdx.z;
   const int k0 = k_tile * kBlockN;
 
-  load_tile<D, kThreads>(k_s, k + b * st.kb + k0 * st.kl + h * st.kh, st.kl,
-                         kBlockN, L - k0);
-  load_tile<D, kThreads>(v_s, v + b * st.vb + k0 * st.vl + h * st.vh, st.vl,
-                         kBlockN, L - k0);
+  load_tile<D, kThreads, kRagged>(
+      k_s, k + b * st.kb + k0 * st.kl + h * st.kh, st.kl, kBlockN, L - k0);
+  load_tile<D, kThreads, kRagged>(
+      v_s, v + b * st.vb + k0 * st.vl + h * st.vh, st.vl, kBlockN, L - k0);
   cp_async_commit();
 
   const T* qg = q + b * st.qb + h * st.qh;
@@ -130,14 +132,14 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
   for (int i = kCausal ? k_tile : 0; i < n_q_tiles; ++i) {
     const int q0 = i * kBlockM;
     __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<D, kThreads>(q_s, qg + static_cast<int64_t>(q0) * st.ql, st.ql,
-                           kBlockM, L - q0);
+    load_tile<D, kThreads, kRagged>(
+        q_s, qg + static_cast<int64_t>(q0) * st.ql, st.ql, kBlockM, L - q0);
     // A query past L gets lse = +inf, so its P is exactly zero.
-    load_floats(lse_s, lse_bh + q0, kBlockM, L - q0, INFINITY);
+    load_floats<kRagged>(lse_s, lse_bh + q0, kBlockM, L - q0, INFINITY);
     cp_async_commit();
-    load_tile<D, kThreads>(do_s, dg + static_cast<int64_t>(q0) * st.dl, st.dl,
-                           kBlockM, L - q0);
-    load_floats(di_s, di_bh + q0, kBlockM, L - q0, 0.f);
+    load_tile<D, kThreads, kRagged>(
+        do_s, dg + static_cast<int64_t>(q0) * st.dl, st.dl, kBlockM, L - q0);
+    load_floats<kRagged>(di_s, di_bh + q0, kBlockM, L - q0, 0.f);
     cp_async_commit();
     cp_async_wait<1>();  // K, V, Q and lse have landed; dO may be in flight
     __syncthreads();
@@ -171,7 +173,8 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
         const int row = krow + g + (e >= 2 ? 8 : 0);  // key in the tile
         const float x = exp2f(fmaf(p[n][e], scale_log2,
                                    -lse_s[col] * kLog2e));
-        p[n][e] = ((diag && row > col) || q0 + col >= L) ? 0.f : x;
+        p[n][e] = ((diag && row > col) || (kRagged && q0 + col >= L))
+                      ? 0.f : x;
       }
     }
 
@@ -245,13 +248,13 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
 #pragma unroll
   for (int dt = 0; dt < kDw / 8; ++dt) {
     const int c = d0 + dt * 8 + 2 * t;
-    if (r0 < L) {
+    if (!kRagged || r0 < L) {
       *reinterpret_cast<uint32_t*>(dk + o0 + c) =
           pack_float2<T>(dk_acc[dt][0] * scale, dk_acc[dt][1] * scale);
       *reinterpret_cast<uint32_t*>(dv + o0 + c) =
           pack_float2<T>(dv_acc[dt][0], dv_acc[dt][1]);
     }
-    if (r1 < L) {
+    if (!kRagged || r1 < L) {
       *reinterpret_cast<uint32_t*>(dk + o1 + c) =
           pack_float2<T>(dk_acc[dt][2] * scale, dk_acc[dt][3] * scale);
       *reinterpret_cast<uint32_t*>(dv + o1 + c) =
@@ -266,7 +269,7 @@ __global__ void __launch_bounds__(128 * kDkvSplit<D>)
 
 constexpr int kDqThreads = 128;
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, bool kRagged>
 __global__ void __launch_bounds__(kDqThreads)
     flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -291,20 +294,23 @@ __global__ void __launch_bounds__(kDqThreads)
   const int q0 = q_tile * kBlockM;
   const int wrow = warp * 16;
 
-  load_tile<D, kDqThreads>(q_s, q + b * st.qb + q0 * st.ql + h * st.qh,
-                           st.ql, kBlockM, L - q0);
-  load_tile<D, kDqThreads>(do_s, dout + b * st.db + q0 * st.dl + h * st.dh,
-                           st.dl, kBlockM, L - q0);
+  load_tile<D, kDqThreads, kRagged>(
+      q_s, q + b * st.qb + q0 * st.ql + h * st.qh, st.ql, kBlockM, L - q0);
+  load_tile<D, kDqThreads, kRagged>(
+      do_s, dout + b * st.db + q0 * st.dl + h * st.dh, st.dl, kBlockM,
+      L - q0);
   cp_async_commit();
 
   const int r0 = q0 + wrow + g;
   const int r1 = r0 + 8;
   const int64_t bh = (static_cast<int64_t>(b) * H + h) * L;
   // Rows past L compute on zeros and are not stored.
-  const float lse0 = r0 < L ? lse[bh + r0] * kLog2e : 0.f;
-  const float lse1 = r1 < L ? lse[bh + r1] * kLog2e : 0.f;
-  const float di0 = r0 < L ? di[bh + r0] : 0.f;
-  const float di1 = r1 < L ? di[bh + r1] : 0.f;
+  const bool in0 = !kRagged || r0 < L;
+  const bool in1 = !kRagged || r1 < L;
+  const float lse0 = in0 ? lse[bh + r0] * kLog2e : 0.f;
+  const float lse1 = in1 ? lse[bh + r1] * kLog2e : 0.f;
+  const float di0 = in0 ? di[bh + r0] : 0.f;
+  const float di1 = in1 ? di[bh + r1] : 0.f;
   const T* kg = k + b * st.kb + h * st.kh;
   const T* vg = v + b * st.vb + h * st.vh;
 
@@ -317,10 +323,10 @@ __global__ void __launch_bounds__(kDqThreads)
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, kDqThreads>(
+    load_tile<D, kDqThreads, kRagged>(
         k_s, kg + static_cast<int64_t>(k0) * st.kl, st.kl, kBlockN, L - k0);
     cp_async_commit();
-    load_tile<D, kDqThreads>(
+    load_tile<D, kDqThreads, kRagged>(
         v_s, vg + static_cast<int64_t>(k0) * st.vl, st.vl, kBlockN, L - k0);
     cp_async_commit();
     cp_async_wait<1>();  // Q, dO and K have landed; V may be in flight
@@ -353,7 +359,8 @@ __global__ void __launch_bounds__(kDqThreads)
         const int row = wrow + g + (e >= 2 ? 8 : 0);
         const float x =
             exp2f(fmaf(p[n][e], scale_log2, e >= 2 ? -lse1 : -lse0));
-        p[n][e] = ((diag && key > row) || k0 + key >= L) ? 0.f : x;
+        p[n][e] = ((diag && key > row) || (kRagged && k0 + key >= L))
+                      ? 0.f : x;
       }
     }
 
@@ -410,10 +417,10 @@ __global__ void __launch_bounds__(kDqThreads)
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int c = dt * 8 + 2 * t;
-    if (r0 < L)
+    if (in0)
       *reinterpret_cast<uint32_t*>(o0 + c) =
           pack_float2<T>(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (r1 < L)
+    if (in1)
       *reinterpret_cast<uint32_t*>(o1 + c) =
           pack_float2<T>(acc[dt][2] * scale, acc[dt][3] * scale);
   }
@@ -564,9 +571,9 @@ struct Args {
 
 int tiles(int L) { return (L + kBlockM - 1) / kBlockM; }
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, bool kRagged>
 cudaError_t dkv_mma(const Args& a) {
-  auto kernel = flash_bwd_dkv_mma<T, D, kCausal>;
+  auto kernel = flash_bwd_dkv_mma<T, D, kCausal, kRagged>;
   constexpr int kThreads = 128 * kDkvSplit<D>;
   const int smem = (2 * kBlockN + 2 * kBlockM) * (D + kPad) * sizeof(T) +
                    2 * kBlockM * sizeof(float);
@@ -581,9 +588,9 @@ cudaError_t dkv_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, bool kCausal, bool kRagged>
 cudaError_t dq_mma(const Args& a) {
-  auto kernel = flash_bwd_dq_mma<T, D, kCausal>;
+  auto kernel = flash_bwd_dq_mma<T, D, kCausal, kRagged>;
   const int smem = (2 * kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -618,20 +625,27 @@ cudaError_t dq_f32(const Args& a) {
 
 typedef cudaError_t (*Launcher)(const Args&);
 
-template <typename T, int D>
+template <typename T, int D, bool kRagged>
 Launcher pick_mma(bool dkv, int causal) {
-  if (dkv) return causal ? dkv_mma<T, D, true> : dkv_mma<T, D, false>;
-  return causal ? dq_mma<T, D, true> : dq_mma<T, D, false>;
+  if (dkv)
+    return causal ? dkv_mma<T, D, true, kRagged> : dkv_mma<T, D, false, kRagged>;
+  return causal ? dq_mma<T, D, true, kRagged> : dq_mma<T, D, false, kRagged>;
+}
+
+template <typename T, int D>
+Launcher pick_mma(bool dkv, int causal, bool ragged) {
+  return ragged ? pick_mma<T, D, true>(dkv, causal)
+                : pick_mma<T, D, false>(dkv, causal);
 }
 
 template <int D>
-Launcher pick(bool dkv, int dtype, int causal) {
+Launcher pick(bool dkv, int dtype, int causal, bool ragged) {
   if (dtype == 1) {
     if (dkv) return causal ? dkv_f32<D, true> : dkv_f32<D, false>;
     return causal ? dq_f32<D, true> : dq_f32<D, false>;
   }
-  return dtype == 2 ? pick_mma<f16, D>(dkv, causal)
-                    : pick_mma<bf16, D>(dkv, causal);
+  return dtype == 2 ? pick_mma<f16, D>(dkv, causal, ragged)
+                    : pick_mma<bf16, D>(dkv, causal, ragged);
 }
 
 int launch(bool dkv, int dtype, int D, int causal, const Args& a) {
@@ -639,9 +653,9 @@ int launch(bool dkv, int dtype, int D, int causal, const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   Launcher fn = nullptr;
   switch (D) {
-    case 64: fn = pick<64>(dkv, dtype, causal); break;
-    case 128: fn = pick<128>(dkv, dtype, causal); break;
-    case 256: fn = pick<256>(dkv, dtype, causal); break;
+    case 64: fn = pick<64>(dkv, dtype, causal, a.L % kBlockM != 0); break;
+    case 128: fn = pick<128>(dkv, dtype, causal, a.L % kBlockM != 0); break;
+    case 256: fn = pick<256>(dkv, dtype, causal, a.L % kBlockM != 0); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(fn(a));

@@ -103,11 +103,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
 // rows x D tile from global (row stride in elements, head dim
 // contiguous) into shared memory with row stride D + kPad, copied by
-// the kThreads threads of the block. Rows at or past `valid` (the ragged
-// end of the sequence) are zero-filled and not read.
-template <int D, int kThreads, typename T>
+// the kThreads threads of the block. With kGuard, rows at or past
+// `valid` (the ragged end of the sequence) are zero-filled and not read;
+// without it every row is read.
+template <int D, int kThreads, bool kGuard = true, typename T>
 __device__ __forceinline__ void load_tile(T* s, const T* g,
                                           int64_t row_stride, int rows,
                                           int valid) {
@@ -115,18 +122,29 @@ __device__ __forceinline__ void load_tile(T* s, const T* g,
   for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
+    if (!kGuard) {
+      cp_async16(s + r * (D + kPad) + c, g + r * row_stride + c);
+      continue;
+    }
     const bool ok = r < valid;
     cp_async16_zfill(s + r * (D + kPad) + c,
                      ok ? g + r * row_stride + c : g, ok);
   }
 }
 
-// n floats into shared memory, plain loads; entries at or past `valid`
-// get `fill`. Visible to the block after its next __syncthreads.
+// n floats into shared memory. With kGuard: plain loads, entries at or
+// past `valid` get `fill`, visible after the block's next __syncthreads.
+// Without it: n % 4 == 0, 16-byte aligned, cp.async.
+template <bool kGuard>
 __device__ __forceinline__ void load_floats(float* s, const float* g, int n,
                                             int valid, float fill) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s[i] = i < valid ? g[i] : fill;
+  if (kGuard) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      s[i] = i < valid ? g[i] : fill;
+    return;
+  }
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+    cp_async16(s + 4 * i, g + 4 * i);
 }
 
 }  // namespace hvd_flash
