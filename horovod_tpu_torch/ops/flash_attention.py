@@ -16,10 +16,19 @@ copies), o is in q's dtype, lse is (B, H, L) float32.
 dv)`` takes the forward's inputs and outputs and o's cotangent ``do``
 and returns the gradients in q's dtype and layout. The kernels take any
 sequence length L >= 1 (a ragged last tile is masked in the kernel), k
-and v shaped like q, in bfloat16, float16 or float32, and a head dim D
-in {64, 128, 256}. That head-dim rule is a declared difference from the
-JAX package, whose einsum path computes any D: anything outside it
-raises ValueError before any launch.
+and v shaped like q, in bfloat16, float16 or float32, and any head dim
+1 <= D <= 256. The kernels are built for D in {64, 128, 256}
+(``KERNEL_HEAD_DIMS``); on CUDA tensors any other D is zero-padded to
+the next of them (``pad_head_dim``), launched with the caller's scale
+(default D ** -0.5 of the real D), and the outputs are cut back to D
+(``cut_head_dim``). The pad is exact: zero columns of q and k add exact
+zeros to q k^T, zero columns of v give zero columns of o; the
+backward takes di = rowsum(o dO) from the unpadded o and dO, and with
+zero columns of q, k, v and dO the padded columns of dq, dk and dv are
+zero. The pad is one copy of each padded input per call; at 64, 128 and
+256 nothing is copied. Above 256 is a declared difference from the JAX
+package, whose einsum path computes any D (its kernel path stops at 256
+too): it raises ValueError before any launch.
 
 Where they run is decided by where the tensors lie, and nowhere else:
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
@@ -36,7 +45,8 @@ import torch
 
 from ._cuda_build import load_library
 
-SUPPORTED_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 128, 256)   # the widths the kernels are built for
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 # Kernel launches since import (or since the caller last reset them), one
@@ -61,12 +71,13 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor,
     _, L, _, D = q.shape
     if L < 1:
         raise ValueError(f"flash_attention: needs L >= 1, got L={L}")
-    if D not in SUPPORTED_HEAD_DIMS:
+    if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(
-            f"flash_attention: the CUDA kernels take a head dim D in "
-            f"{SUPPORTED_HEAD_DIMS}, got D={D}; other head dims are a "
+            f"flash_attention: the CUDA kernels take a head dim "
+            f"1 <= D <= {MAX_HEAD_DIM}, got D={D}; larger head dims are a "
             f"declared difference from the JAX package's einsum path, "
-            f"which computes any D (ROADMAP C)")
+            f"which computes any D (its kernel path also stops at "
+            f"{MAX_HEAD_DIM})")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(
@@ -235,25 +246,48 @@ def _check_readable(what: str, **tensors: torch.Tensor) -> None:
                 f"{t.stride()}")
 
 
+def kernel_head_dim(D: int) -> int:
+    """The narrowest kernel width that holds head dim D (<= 256)."""
+    return next(w for w in KERNEL_HEAD_DIMS if w >= D)
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t with its head dim zero-padded to ``width``: one contiguous
+    copy, or t itself when it is already that wide."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def cut_head_dim(t: torch.Tensor, D: int) -> torch.Tensor:
+    """The first D columns of t's head dim, contiguous; t itself when it
+    is D wide."""
+    if t.shape[-1] == D:
+        return t
+    return t[..., :D].contiguous()
+
+
 def _launch_fwd(q, k, v, causal: bool, scale: float):
     global launches
+    D = q.shape[-1]
+    q, k, v = (pad_head_dim(t, kernel_head_dim(D)) for t in (q, k, v))
     _check_readable("flash_attention_fwd", q=q, k=k, v=v)
     lib = load_library("flash_attention_fwd")
-    B, L, H, D = q.shape
+    B, L, H, Dp = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hvd_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODES[q.dtype], B, L, H, D,
+            lse.data_ptr(), _DTYPE_CODES[q.dtype], B, L, H, Dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed "
                            f"with cudaError_t {err}")
     launches += 1
-    return o, lse
+    return cut_head_dim(o, D), lse
 
 
 def backward_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -264,14 +298,17 @@ def backward_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+    D = q.shape[-1]
+    lse = lse.contiguous()
+    di = backward_di(o, do)           # o itself is not read by the kernels
+    q, k, v, do = (pad_head_dim(t, kernel_head_dim(D))
+                   for t in (q, k, v, do))
     _check_readable("flash_attention_bwd", q=q, k=k, v=v)
     if not _readable(do):
         do = do.contiguous()          # a copy the kernels can read
-    lse = lse.contiguous()
-    di = backward_di(o, do)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, causal, scale)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, di, causal, scale)
-    return dq, dk, dv
+    return tuple(cut_head_dim(t, D) for t in (dq, dk, dv))
 
 
 def _bwd_call(entry: str, q, k, v, do, lse, di, outs, causal: bool,

@@ -1,6 +1,7 @@
 """horovod_tpu_torch's CUDA kernels on the card: the flash-attention
 forward and its dK/dV and dQ backward kernels against their plain
-versions (ragged lengths and float16 included), the Adasum kernels K1
+versions (ragged lengths, float16 and head dims the wrapper pads
+included), the Adasum kernels K1
 and K2 against theirs, their launch counters, attention() on CUDA
 tensors, the tied LM head's mixed product against the float32 one, and
 the serving (both ladders), training and two-rank gloo Adasum paths
@@ -69,9 +70,14 @@ def _qkv(card, shape, dtype, seed=0):
             for _ in range(3)]
 
 
+# Head dims the kernels are built for, and ones the wrapper zero-pads to
+# the next of them.
+HEAD_DIMS = [64, 128, 256, 16, 80, 96, 192]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_kernel_matches_plain(card, D, causal, dtype):
     q, k, v = _qkv(card, (2, 256, 3, D), dtype)
     before = fa.launches
@@ -96,7 +102,7 @@ def test_kernel_reads_strided_inputs_in_place(card):
 
 
 def test_unsupported_shape_raises_before_launch(card):
-    q, k, v = _qkv(card, (1, 128, 2, 32), torch.bfloat16)
+    q, k, v = _qkv(card, (1, 128, 2, 288), torch.bfloat16)
     before = fa.launches
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, k, v)
@@ -107,7 +113,7 @@ def test_attention_modes_on_the_card(card, monkeypatch):
     """CUDA tensors launch the kernel whatever HOROVOD_FLASH_ATTENTION
     says, and a shape the kernel does not take raises."""
     q, k, v = _qkv(card, (1, 256, 2, 64), torch.bfloat16)
-    small = _qkv(card, (1, 256, 2, 16), torch.bfloat16)
+    small = _qkv(card, (1, 256, 2, 288), torch.bfloat16)
     ref = fa.flash_attention_fwd_plain(q, k, v, True)[0]
     for mode in ("0", "1", "auto", None):
         if mode is None:
@@ -168,7 +174,7 @@ def _bwd_inputs(card, shape, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_backward_kernels_match_plain(card, D, causal, dtype):
     q, k, v, do = _bwd_inputs(card, (2, 256, 3, D), dtype)
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -198,7 +204,7 @@ def test_backward_reads_strided_inputs_in_place(card):
 
 
 def test_backward_unsupported_inputs_raise_before_launch(card):
-    q, k, v, do = _bwd_inputs(card, (1, 128, 2, 32), torch.bfloat16)
+    q, k, v, do = _bwd_inputs(card, (1, 128, 2, 288), torch.bfloat16)
     o = torch.zeros_like(q)
     lse = torch.zeros((1, 2, 128), device=card)
     before = (fa.launches_dkv, fa.launches_dq)

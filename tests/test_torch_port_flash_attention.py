@@ -106,7 +106,7 @@ def test_port_attention_matches_jax(dtype, causal, mode, monkeypatch):
 
 
 @pytest.mark.parametrize("shape_q,shape_k,dtype", [
-    ((B, L, H, 48), (B, L, H, 48), torch.float32),     # head dim
+    ((B, L, H, 288), (B, L, H, 288), torch.float32),   # head dim > 256
     ((B, 0, H, D), (B, 0, H, D), torch.float32),       # L == 0
     ((B, L, H, D), (B, L, H // 2, D), torch.float32),  # GQA not repeated
     ((B, L, H, D), (B, L, H, D), torch.float64),       # dtype
@@ -133,12 +133,16 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     ((B, L, H, 48), (B, L, H, 48)),
     ((B, 100, H, D), (B, 100, H, D)),
     ((B, L, H, D), (B, L, H // 2, D)),
+    ((B, 100, H, 16), (B, 100, H, 16)),
+    ((B, L, H, 288), (B, L, H, 288)),
 ])
 def test_kernel_shape_rule_matches_jax(shape_q, shape_k, monkeypatch):
     """check_inputs admits what the JAX _flash_supported admits on its
-    kernel's backend and, as the one declared difference, a sequence
-    length that is not a multiple of 128 (the CUDA kernels mask a ragged
-    last tile; the JAX package's einsum path computes it)."""
+    kernel's backend and, as declared differences, a sequence length
+    that is not a multiple of 128 (the CUDA kernels mask a ragged last
+    tile) and any head dim D <= 256 (the wrapper zero-pads it to the
+    next kernel width); the JAX package's einsum path computes both.
+    Above 256 both refuse the kernel."""
     monkeypatch.setattr(jra.jax, "default_backend", lambda: "tpu")
     jax_ok = jra._flash_supported(jnp.zeros(shape_q), jnp.zeros(shape_k))
     q, k = torch.zeros(shape_q), torch.zeros(shape_k)
@@ -147,9 +151,10 @@ def test_kernel_shape_rule_matches_jax(shape_q, shape_k, monkeypatch):
         port_ok = True
     except ValueError:
         port_ok = False
-    ragged_only = shape_q == shape_k and shape_q[1] % 128 != 0 \
-        and shape_q[-1] in fa.SUPPORTED_HEAD_DIMS
-    assert port_ok == (jax_ok or ragged_only)
+    declared = shape_q == shape_k and shape_q[-1] <= fa.MAX_HEAD_DIM \
+        and (shape_q[1] % 128 != 0
+             or shape_q[-1] not in fa.KERNEL_HEAD_DIMS)
+    assert port_ok == (jax_ok or declared)
 
 
 def test_cpu_attention_takes_shapes_the_kernel_does_not(monkeypatch):
@@ -248,8 +253,9 @@ def test_backward_checks_its_inputs_before_launch(bad):
         lse = lse.double()
     elif bad == "lse_shape":
         lse = lse.transpose(1, 2)
-    else:
-        q, k, v, o, do = (x[..., :48] for x in (q, k, v, o, do))
+    else:                                         # D = 288 > 256
+        q, k, v, o, do = (torch.cat([x] * 4 + [x[..., :32]], -1)
+                          for x in (q, k, v, o, do))
     before = (fa.launches_dkv, fa.launches_dq)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(q, k, v, o, lse, do, True)
@@ -285,7 +291,7 @@ def test_kernels_take_ragged_lengths_and_float16(L_, dtype):
 
 
 def test_head_dims_outside_the_kernels_name_the_declared_difference():
-    q = torch.zeros((1, 16, 2, 96))
+    q = torch.zeros((1, 16, 2, 288))
     with pytest.raises(ValueError, match="declared difference"):
         fa.check_inputs(q, q, q)
 
@@ -308,3 +314,87 @@ def test_port_attention_at_ragged_lengths_matches_jax(L_, dtype,
     got.backward(tdo)
     for g, r in zip((tq.grad, tk.grad, tv.grad), vjp(jdo)):
         _assert_close(g, r, TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# Head dims the kernels are not built for: on CUDA tensors the wrapper
+# zero-pads D to the next kernel width, launches with the real D's scale
+# and cuts the outputs back (pad_head_dim / cut_head_dim). Here the same
+# pad and cut go around the plain versions: in float32 the result must
+# equal the unpadded plain version up to the order of sums (1e-6
+# relative, Frobenius norm of each tensor), and the padded columns must
+# be exactly zero.
+
+PAD_TOL = 1e-6
+
+
+@pytest.mark.parametrize("D_", [16, 48, 80, 96, 192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_pad_is_exact_forward_and_backward(D_, causal):
+    rng = np.random.RandomState(D_)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 100, 3, D_)
+                                    .astype(np.float32)) for _ in range(4))
+    Dp = fa.kernel_head_dim(D_)
+    assert Dp in fa.KERNEL_HEAD_DIMS and Dp > D_
+    scale = D_ ** -0.5
+    qp, kp, vp, dop = (fa.pad_head_dim(t, Dp) for t in (q, k, v, do))
+    assert qp.shape[-1] == Dp and qp.is_contiguous()
+
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+    o_pad, lse = fa.flash_attention_fwd_plain(qp, kp, vp, causal, scale)
+    assert not o_pad[..., D_:].any()
+    o = fa.cut_head_dim(o_pad, D_)
+    assert o.shape == q.shape and o.is_contiguous()
+    assert chip_smoke.rel_err(o, o_ref) <= PAD_TOL
+    assert chip_smoke.rel_err(lse, lse_ref) <= PAD_TOL
+
+    ref = fa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal,
+                                       scale)
+    got_pad = fa.flash_attention_bwd_plain(qp, kp, vp, o_pad, lse, dop,
+                                           causal, scale)
+    for g in got_pad:
+        assert not g[..., D_:].any()
+    got = [fa.cut_head_dim(g, D_) for g in got_pad]
+    for g, r in zip(got, ref):
+        assert chip_smoke.rel_err(g, r) <= PAD_TOL
+
+
+@pytest.mark.parametrize("D_", [64, 128, 256])
+def test_head_dim_pad_copies_nothing_at_kernel_widths(D_):
+    t = torch.zeros((1, 4, 2, D_))
+    assert fa.kernel_head_dim(D_) == D_
+    assert fa.pad_head_dim(t, D_) is t
+    assert fa.cut_head_dim(t, D_) is t
+
+
+@pytest.mark.parametrize("D_", [16, 80])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_head_dims_match_jax(D_, dtype, monkeypatch):
+    """attention() at a head dim the kernels are not built for, and the
+    wrapper's pad -> plain -> cut around it, against the JAX package's
+    attention and its VJP."""
+    monkeypatch.delenv("HOROVOD_FLASH_ATTENTION", raising=False)
+    rng = np.random.RandomState(D_ + 7)
+    arrs = [rng.randn(1, 128, 2, D_).astype(np.float32) for _ in range(4)]
+    jq, jk, jv, jdo = (jnp.asarray(a, JNP[dtype]) for a in arrs)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(TORCH[dtype])
+                       for a in arrs)
+    ref, vjp = jax.vjp(lambda q, k, v: jra.attention(q, k, v, causal=True),
+                       jq, jk, jv)
+    jgrads = vjp(jdo)
+
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    got = tra.attention(q, k, v, causal=True)
+    _assert_close(got.detach(), ref, TOL[dtype])
+    got.backward(tdo)
+    for g, r in zip((q.grad, k.grad, v.grad), jgrads):
+        _assert_close(g, r, TOL[dtype])
+
+    Dp, scale = fa.kernel_head_dim(D_), D_ ** -0.5
+    qp, kp, vp, dop = (fa.pad_head_dim(t, Dp) for t in (tq, tk, tv, tdo))
+    o_pad, lse = fa.flash_attention_fwd_plain(qp, kp, vp, True, scale)
+    _assert_close(fa.cut_head_dim(o_pad, D_), ref, TOL[dtype])
+    grads = fa.flash_attention_bwd_plain(qp, kp, vp, o_pad, lse, dop, True,
+                                         scale)
+    for g, r in zip(grads, jgrads):
+        _assert_close(fa.cut_head_dim(g, D_), r, TOL[dtype])
