@@ -20,10 +20,11 @@ import fcntl
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -38,7 +39,9 @@ _FLASH_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 LIBRARIES = {
     "flash_attention_fwd": {
         "hvd_flash_attention_fwd": [_PTR] * 5 + [_INT] * 5 + [_LL] * 9
-        + _FLASH_TAIL},
+        + _FLASH_TAIL,
+        # D -> the 16-bit kernel's dynamic shared memory in bytes
+        "hvd_flash_attention_fwd_smem_bytes": [_INT]},
     "flash_attention_bwd": {
         "hvd_flash_attention_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [_LL] * 12
         + _FLASH_TAIL,
@@ -55,6 +58,8 @@ LIBRARIES = {
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
+# Library -> the compiler's output of its last verbose build.
+build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -112,6 +117,7 @@ def build(verbose: bool = False) -> Dict[str, str]:
                 failed.append(f"{name} ({proc.returncode}):\n{out}{err}")
                 continue
             if verbose:
+                build_logs[name] = out + err
                 print(f"nvcc {name}:\n{out}{err}", flush=True)
             os.replace(tmp, path)
         if failed:
@@ -131,3 +137,48 @@ def load_library(name: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
             _libs[name] = lib
     return _libs[name]
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_resources(log: str) -> List[dict]:
+    """Each kernel's registers, static shared memory and spill bytes
+    from a ``-Xptxas=-v`` build log, with the performance notes and
+    warnings ptxas printed naming it; names are demangled where c++filt
+    exists."""
+    kernels: List[dict] = []
+    notes = [line.strip() for line in log.splitlines()
+             if "Performance Loss" in line or "warning" in line.lower()]
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            kernels.append({"kernel": m.group(1), "registers": None,
+                            "smem_bytes": 0, "spill_stores": 0,
+                            "spill_loads": 0,
+                            "notes": [n for n in notes
+                                      if f"'{m.group(1)}'" in n]})
+            continue
+        if not kernels:
+            continue
+        cur = kernels[-1]
+        m = _PTXAS_SPILLS.search(line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = _PTXAS_SMEM.search(line)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    filt = shutil.which("c++filt")
+    if filt and kernels:
+        names = subprocess.run([filt], input="\n".join(
+            k["kernel"] for k in kernels), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(kernels):
+            for k, name in zip(kernels, names):
+                k["kernel"] = name
+    return kernels

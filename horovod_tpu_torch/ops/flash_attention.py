@@ -47,6 +47,9 @@ from ._cuda_build import load_library
 
 KERNEL_HEAD_DIMS = (64, 128, 256)   # the widths the kernels are built for
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+# hvd_flash_attention_fwd's code for a failed tensor-map encode, plus
+# the CUresult.
+_TENSOR_MAP_ERROR = 100000
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 # Kernel launches since import (or since the caller last reset them), one
@@ -283,6 +286,11 @@ def _launch_fwd(q, k, v, causal: bool, scale: float):
             lse.data_ptr(), _DTYPE_CODES[q.dtype], B, L, H, Dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), scale, stream)
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash_attention_fwd: tensor-map encode failed "
+                           f"with CUresult {err - _TENSOR_MAP_ERROR} "
+                           f"(strides {q.stride()}, {k.stride()}, "
+                           f"{v.stride()})")
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed "
                            f"with cudaError_t {err}")

@@ -1,7 +1,7 @@
 """horovod_tpu_torch's CUDA kernels on the card: the flash-attention
 forward and its dK/dV and dQ backward kernels against their plain
 versions (ragged lengths, float16 and head dims the wrapper pads
-included), the Adasum kernels K1
+included), the forward's bitwise repeatability, the Adasum kernels K1
 and K2 against theirs, their launch counters, attention() on CUDA
 tensors, the tied LM head's mixed product against the float32 one, and
 the serving (both ladders), training and two-rank gloo Adasum paths
@@ -97,6 +97,43 @@ def test_kernel_reads_strided_inputs_in_place(card):
     assert not q.is_contiguous()
     o, lse = fa.flash_attention_fwd(q, k, v, True)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, True)
+    assert _rel(o, o_ref) <= TOL[torch.bfloat16]
+    assert _abs(lse, lse_ref) <= TOL_LSE
+
+
+def test_kernel_reads_head_major_views_in_place(card):
+    """q, k, v as (B, L, H, D) views of (B, H, L, D) tensors: the
+    tensor maps take strides in any order."""
+    q, k, v = (t.transpose(1, 2) for t in
+               _qkv(card, (2, 4, 384, 128), torch.bfloat16))
+    assert q.stride(2) > q.stride(1)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, True)
+    assert _rel(o, o_ref) <= TOL[torch.bfloat16]
+    assert _abs(lse, lse_ref) <= TOL_LSE
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_forward_is_bitwise_repeatable(card, D, causal, dtype):
+    q, k, v = _qkv(card, (2, 1000, 4, D), dtype, seed=D)
+    first = fa.flash_attention_fwd(q, k, v, causal)
+    again = fa.flash_attention_fwd(q, k, v, causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("L", [1, 127, 129])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_forward_at_lengths_around_one_tile(card, L, causal, D):
+    """Shorter than, one short of and one past the kernel's 128-row
+    query tile (and its 64- or 128-key tile)."""
+    q, k, v = _qkv(card, (2, L, 3, D), torch.bfloat16, seed=L)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal)
+    assert o.shape == q.shape and o.is_contiguous()
     assert _rel(o, o_ref) <= TOL[torch.bfloat16]
     assert _abs(lse, lse_ref) <= TOL_LSE
 

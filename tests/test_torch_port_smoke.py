@@ -1,7 +1,7 @@
 """chip_smoke.py's checks, on the CPU: its kernel-vs-plain measures
 (the forward's worst row, the backward's worst (b, h) slice) admit the
 bf16 rounding an honest flash kernel does and reject the faults it
-plants (the backward's by 10x its tolerance); its Adasum check admits
+plants by 10x their tolerance; its Adasum check admits
 the plain version and rejects both planted faults by 10x; phase 9's two
 ranks rehearse on gloo and the CPU at a small size; and without a CUDA
 device it exits non-zero with no result.
@@ -55,8 +55,9 @@ def test_row_check_rejects_planted_faults(causal):
     assert set(faults) == {"no_rescale", "v_first_tile"}
     for name, bad in faults.items():
         assert bad.shape == ref.shape and bad.dtype == ref.dtype
-        assert chip_smoke.row_rel_err(bad, ref) > \
-            chip_smoke.TOL_ROW[torch.bfloat16], name
+        assert chip_smoke.row_rel_err(bad, ref) >= \
+            chip_smoke.FAULT_MARGIN * chip_smoke.TOL_ROW[torch.bfloat16], \
+            name
 
 
 def test_row_rel_err_is_per_row():
