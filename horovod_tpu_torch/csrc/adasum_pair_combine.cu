@@ -4,14 +4,14 @@
 // ctypes.
 //
 // Replaces: horovod_tpu/ops/pallas_kernels.py `_partials_kernel` (l.50,
-// pallas_call l.94) and `_scaled_add_kernel` (l.68, pallas_call l.111),
-// the two passes of `adasum_pair_combine` (l.78), which the JAX package
-// runs inside the gather fold's `_pair_combine` (ops/adasum.py:116).
+// pallas_call l.94) and `_scaled_add_kernel` (l.70, pallas_call l.111),
+// the two passes of `adasum_pair_combine` (l.79), which the JAX package
+// runs inside the gather fold's `_pair_combine` (ops/adasum.py:110).
 //
 // Function, for two equal-length vectors a and b of f32, bf16 or f16:
 //   K1: dot = a.b, asq = |a|^2, bsq = |b|^2, accumulated in f32; then
 //       ca = asq == 0 ? 1 : 1 - dot / (2 max(asq, 1e-30)), cb likewise
-//       with bsq (the JAX kernel's zero-norm guards, l.104-109).
+//       with bsq (the JAX kernel's zero-norm guards, l.105-108).
 //       stats = [ca, cb, dot, asq, bsq], five f32 in device memory.
 //   K2: out = cast(ca * float(a) + cb * float(b)), one rounding to the
 //       input dtype; ca and cb are read from `stats` on the device, so

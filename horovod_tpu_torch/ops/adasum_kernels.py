@@ -4,8 +4,8 @@ wrappers and launch counters, and their plain PyTorch versions.
 Counterpart of ``horovod_tpu/ops/pallas_kernels.py``: K1
 (``adasum_partials``, csrc/adasum_pair_combine.cu) replaces
 ``_partials_kernel`` (l.50) and K2 (``adasum_scaled_add``) replaces
-``_scaled_add_kernel`` (l.68); ``adasum_pair_combine`` is the JAX
-function of that name (l.78), the two passes in a row:
+``_scaled_add_kernel`` (l.70); ``adasum_pair_combine`` (l.79) is the JAX
+function of that name, the two passes in a row:
 
     out = (1 - a.b/(2|a|^2)) * a + (1 - a.b/(2|b|^2)) * b
 

@@ -86,7 +86,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(
             f"flash_attention: q, k, v must share one dtype of "
             f"{sorted(str(d) for d in _DTYPE_CODES)}, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}")
+            f"{q.dtype}, {k.dtype}, {v.dtype}; other dtypes (float64 "
+            f"among them) are a declared difference from the JAX "
+            f"package's einsum path, which computes them")
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"flash_attention: q, k, v lie on {q.device}, "

@@ -296,6 +296,14 @@ def test_head_dims_outside_the_kernels_name_the_declared_difference():
         fa.check_inputs(q, q, q)
 
 
+def test_float64_names_the_declared_difference():
+    q = torch.zeros((1, 16, 2, 64), dtype=torch.float64)
+    with pytest.raises(ValueError, match=r"float64 among them\) are a "
+                                         r"declared difference from the JAX "
+                                         r"package's einsum path"):
+        fa.flash_attention_fwd(q, q, q)
+
+
 @pytest.mark.parametrize("L_", [16, 1000])
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
 def test_port_attention_at_ragged_lengths_matches_jax(L_, dtype,

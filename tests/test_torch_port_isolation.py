@@ -1,10 +1,12 @@
 """horovod_tpu_torch stands alone: importing it loads neither jax nor
 horovod_tpu, no file of it (nor chip_smoke.py) imports them, and its
 copies of the framework-neutral modules stay the reference's bytes
-but for a declared list of differences."""
+but for a declared list of differences, and the K1/K2 sources cite the
+reference's functions at the lines that define them."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -190,3 +192,26 @@ def test_copied_function_differs_only_as_declared(key):
         assert old in expect
         expect = expect.replace(old, new)
     assert _function_source(f"horovod_tpu_torch/{port}", name) == expect
+
+
+# The port's K1/K2 sources cite the reference's functions by line: a name
+# in backquotes followed by "(l.N" (horovod_tpu/ops/pallas_kernels.py,
+# the file both sources name as their counterpart) or by
+# "(ops/<module>.py:N" (that module of horovod_tpu).
+_CITATION = re.compile(r"`{1,2}(\w+)`{1,2} \((?:l\.|(ops/\w+\.py):)(\d+)")
+
+
+@pytest.mark.parametrize("source", ["horovod_tpu_torch/ops/adasum_kernels.py",
+                                    "horovod_tpu_torch/csrc/"
+                                    "adasum_pair_combine.cu"])
+def test_k1_k2_sources_cite_the_reference_lines_of_its_functions(source):
+    cited = _CITATION.findall(_read(*source.split("/")))
+    assert len(cited) >= 4, cited
+    wrong = []
+    for name, module, line in cited:
+        ref = f"horovod_tpu/{module or 'ops/pallas_kernels.py'}"
+        text = _read(*ref.split("/")).splitlines()[int(line) - 1]
+        if not re.match(rf"\s*def {name}\(", text):
+            wrong.append(f"{name} cited at {ref}:{line}, which reads "
+                         f"{text.strip()!r}")
+    assert wrong == []
