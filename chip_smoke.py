@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    nvcc builds the flash-attention forward and backward libraries and
    the Adasum pair-combine library, one nvcc per source, started
    together; one line per kernel instantiation with ptxas's registers,
-   static shared memory and spill bytes (and the forward's dynamic
-   shared memory per head dim).
+   static shared memory and spill bytes (and the forward's and the
+   dK/dV kernel's dynamic shared memory per head dim).
 2. Forward kernel vs plain: the kernel against its plain PyTorch version
    at the served shapes (B in 1, 2, 4; L 2048; 32 heads; head dim 128;
    bf16; causal), non-causal, head dim 64, ragged lengths (L = 16, 1000,
@@ -40,7 +40,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    128) causal bf16, at B = 4, non-causal, head dim 64, head dim 256,
    ragged lengths (L = 16, 1000, 2047), float16 at L = 2048, the padded
    head dims, and small float32 cases. At the training shape it shows
-   that the check fails three faults planted in a copy of the plain
+   that the check fails four faults planted in a copy of the plain
    backward, each by 10x its tolerance or more, and it times each
    kernel, the plain backward and the backward of
    F.scaled_dot_product_attention (timed only).
@@ -141,6 +141,7 @@ N_REQUESTS = 6
 TOL_ROW = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}
 TOL_LSE = 1e-4
 FAULT_TILE = 128         # the forward kernel's key tile at head dim 128
+BWD_FAULT_TILE = 64      # the dK/dV kernel's query tile at head dim 128
 TOL_SLICE = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
              torch.float32: 1e-5}
 FAULT_MARGIN = 10.0      # a planted fault must exceed the tolerance 10x
@@ -228,15 +229,24 @@ def planted_faults(fa, q, k, v, causal, tile=FAULT_TILE):
             "v_first_tile": v_first_tile}
 
 
-def planted_backward_faults(q, k, v, o, lse, do, causal):
-    """(dq, dk, dv) of three faulty copies of the plain backward, each a
+def planted_backward_faults(q, k, v, o, lse, do, causal,
+                            tile=BWD_FAULT_TILE):
+    """(dq, dk, dv) of four faulty copies of the plain backward, each a
     bug a flash backward kernel can have: ``no_di`` leaves di out of dS;
     ``no_causal_mask`` recomputes P over every key; ``dk_unscaled``
-    leaves the softmax scale out of dK."""
+    leaves the softmax scale out of dK; ``ring_first_tile`` computes dK
+    and dV from the first query tile's Q, dO, lse and di in place of
+    every tile's (a ring stage read on the wrong parity)."""
     D = q.shape[-1]
     scale = D ** -0.5
 
-    def bwd(di_on=True, mask_on=True, dk_scale=scale):
+    def first_tile(x, dim):
+        reps = [1] * x.dim()
+        reps[dim] = x.shape[dim] // tile
+        return x.narrow(dim, 0, tile).repeat(*reps)
+
+    def bwd(di_on=True, mask_on=True, dk_scale=scale, q=q, o=o, lse=lse,
+            do=do):
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
         if causal and mask_on:
             L = q.shape[1]
@@ -256,8 +266,11 @@ def planted_backward_faults(q, k, v, o, lse, do, causal):
         dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * dk_scale
         return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
+    ring = bwd(q=first_tile(q, 1), o=first_tile(o, 1),
+               lse=first_tile(lse, 2), do=first_tile(do, 1))
     return {"no_di": bwd(di_on=False), "no_causal_mask": bwd(mask_on=False),
-            "dk_unscaled": bwd(dk_scale=1.0)}
+            "dk_unscaled": bwd(dk_scale=1.0),
+            "ring_first_tile": (bwd()[0], *ring[1:])}
 
 
 def time_ms(fn, iters, warmup=2):
@@ -1239,9 +1252,13 @@ def main():
         for res in _cuda_build.ptxas_resources(build_log):
             log(f"phase 1: ptxas {name}: " + json.dumps(res))
     fwd_lib = _cuda_build.load_library("flash_attention_fwd")
-    log("phase 1: flash_attention_fwd dynamic shared memory bytes " +
-        json.dumps({D: fwd_lib.hvd_flash_attention_fwd_smem_bytes(D)
-                    for D in fa.KERNEL_HEAD_DIMS}))
+    bwd_lib = _cuda_build.load_library("flash_attention_bwd")
+    smem = {"flash_attention_fwd": fwd_lib.hvd_flash_attention_fwd_smem_bytes,
+            "flash_attention_bwd_dkv":
+                bwd_lib.hvd_flash_attention_bwd_dkv_smem_bytes}
+    log("phase 1: dynamic shared memory bytes " + json.dumps(
+        {name: {D: fn(D) for D in fa.KERNEL_HEAD_DIMS}
+         for name, fn in smem.items()}))
 
     cases = phase_kernel_vs_plain(fa, dev)
     log("phase 2: " + subprocess.run(

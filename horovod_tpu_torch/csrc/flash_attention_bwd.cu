@@ -16,53 +16,98 @@
 //   dK/dV kernel: dV = P^T dO and dK = scale * dS^T q;
 //   dQ kernel:    dQ = scale * dS k.
 // q, k, v and dO are (B, L, H, D) with the head dim contiguous and any
-// other strides; lse and di are (B, H, L) float32, contiguous; dq, dk and
-// dv are written contiguous in the inputs' dtype. Any L >= 1: the last
-// query and key tiles may be ragged; their missing rows are zero-filled
-// in shared memory, P is zero for queries or keys at or past L, and rows
-// at or past L are not stored. Those guards are a second instantiation
-// (kRagged), launched only when L % 64 != 0, so a whole number of tiles
-// runs the unguarded loops.
+// other strides that are multiples of 16 bytes; lse and di are (B, H, L)
+// float32, contiguous; dq, dk and dv are written contiguous in the
+// inputs' dtype. Any L >= 1: rows at or past L are never stored, and P
+// is zero for queries or keys at or past L.
 //
 // What bounds it on an H100: at the training shape (L = 2048, D = 128)
 // dK/dV does four products (8*D operations per visible (query, key)
 // pair) and dQ three (6*D), against 4 to 5 reads or writes of L*D per
 // (b, h): about 1000 operations per byte, far above the card's ~295 bf16
-// operations per byte, so the tensor cores bound both, not memory.
-// What the design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate); P and dS live only in
-// registers. The dK/dV kernel computes the transposed scores S^T = K Q^T
-// directly, so the accumulator layout of P^T and dS^T is, repacked to
-// bf16, the A operand of P^T dO and dS^T Q (no transposition through
-// shared memory); the dQ kernel reuses the forward's layout the same way
-// for dS K. The "B" operands that run along the query or key axis (dO and
-// Q in dK/dV, K in dQ) are read as 16-bit pairs from padded shared memory.
-// Each CTA owns its output tile and writes it once: no atomics, so the
-// gradients are bitwise the same from run to run. Causal CTAs skip the
-// tiles above the diagonal. It does not yet use wgmma, TMA, ldmatrix or a
-// multi-stage pipeline.
+// operations per byte, so the tensor cores bound both, not memory. Only
+// wgmma reaches their full rate on Hopper.
 //
-// Registers: a dK/dV warp holds two 16 x D f32 accumulators plus the
-// 16 x 64 P^T and dP^T tiles. At D = 256 that is past 255 registers, so
-// there the head dim is split across two groups of four warps, each
-// group accumulating half of dK and dV (the two scores products are then
-// computed by both groups).
+// The dK/dV kernel (flash_bwd_dkv_wgmma) and what its design does about
+// that:
+// - A CTA owns 64 keys of one (b, h) and walks the query tiles of kBlockM
+//   rows (from the diagonal when causal). It has three warpgroups.
+//   Warpgroup 0 is the producer: it gives up registers (setmaxnreg to
+//   24) and one elected thread of its first warp issues every TMA load.
+//   K and V are loaded once; Q, dO, lse and di of each query tile go
+//   through a ring of kStages stages, each with a "full" and an "empty"
+//   barrier. lse and di are copied into the stage by that warp's lanes
+//   with plain loads: a tile's rows start anywhere in (B, H, L), and
+//   rank-1 TMA boxes at such starts (not 16-byte aligned at a ragged L)
+//   stopped the kernel with an illegal instruction on the card.
+// - Warpgroup 1 owns dV. It computes S^T = K Q^T (wgmma, both K-major),
+//   then P^T = exp2(scale_log2 S^T - lse log2e), masked, hands P^T in
+//   float32 to warpgroup 2 through a double-buffered shared-memory slot,
+//   and accumulates dV += P^T dO (wgmma with P^T, rounded to 16 bits in
+//   pairs, as the register A operand and dO read MN-major).
+// - Warpgroup 2 owns dK. It computes dP^T = V dO^T, takes P^T from the
+//   slot, forms dS^T = P^T (dP^T - di) and accumulates dK += dS^T Q (Q
+//   read MN-major). So each consumer issues two products of the same size
+//   per tile and holds one 64 x D float32 accumulator, and the two
+//   scores tiles have the same accumulator layout: thread i of warpgroup
+//   2 reads from the slot exactly what thread i of warpgroup 1 wrote,
+//   16 bytes a thread in a row of 128 threads, with no bank conflicts.
+//   dS is formed from float32 P, as before; P^T and dS^T are rounded to
+//   16 bits only as product operands.
+// - Overlap: each consumer issues the scores product of tile j + 1 and
+//   the gradient product of tile j back to back, then works on tile
+//   j + 1's scores (exponentials, or dS) while the gradient product is
+//   still on the tensor cores. A stage is released only when tile j's
+//   gradient products have retired, one tile later than without the
+//   overlap, so the ring has three stages and the producer still loads a
+//   tile ahead.
+// - Ragged L and causal: TMA zero-fills rows past L, and the producer
+//   writes zero lse and di there. Tiles that cross the diagonal or the
+//   end of L are masked with one uniform branch per tile: P^T is set to
+//   zero above the diagonal and for queries at or past L explicitly,
+//   since lse there is 0, not +inf. Keys past L are independent rows
+//   that are not stored. So no second instantiation is needed.
+// - Epilogue: dK (times scale) and dV are rounded to the input's type,
+//   staged with the TMA swizzle in shared memory no other warpgroup reads
+//   any more (dV in K's tile, dK in V's tile) and written with 16-byte
+//   stores; rows past L are not stored.
+// - No atomics: two launches on the same inputs are bitwise equal. A
+//   barrier wait that lasts 10 s traps (hopper_common.cuh).
+// - Registers: one accumulator (D / 2 floats a thread) plus the scores
+//   tile (kBlockM / 2) and its 16-bit A operand (kBlockM / 4) have to fit
+//   under the 168 registers a thread that three warpgroups get at launch:
+//   kBlockM = 128 at D = 64 and 64 at D = 128 do with no spills. At
+//   D = 256 the accumulator alone is 128 floats, so the query tile is 32
+//   rows there, and ptxas still spills a little.
+// Shared memory (K + V + kStages x (Q + dO + lse + di) + 2 slots):
+// D = 64: 16 + 3 x 33 + 64 KB; D = 128: 32 + 3 x 32.5 + 32 KB;
+// D = 256: 64 + 3 x 32.25 + 16 KB.
+//
+// The dQ kernel (flash_bwd_dq_mma) runs every product on the tensor cores
+// with mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate): S = Q K^T, dP
+// = dO V^T and dQ += dS K, P and dS in registers (the accumulator layout
+// of S is the A operand of dS K), K read as 16-bit pairs from padded
+// shared memory loaded by cp.async. A ragged L runs a second, guarded
+// instantiation (kRagged), launched only when L % 64 != 0. It does not
+// yet use wgmma or TMA.
 //
 // bf16 is the trained type; f16 runs the same kernels with the f16 form
-// of the tensor-core product. The float32 entry points are plain scalar
-// kernels (CUDA cores, f32 arithmetic) for tests against the plain
-// PyTorch version; no training path runs them.
+// of the product. The float32 entry points are plain scalar kernels
+// (CUDA cores, f32 arithmetic) for tests against the plain PyTorch
+// version; no training path runs them.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 using namespace hvd_flash;
+using namespace hvd_hopper;
 
 namespace {
 
-constexpr int kBlockM = 64;  // queries per tile
+constexpr int kBlockM = 64;  // queries per tile of the dQ kernel
 constexpr int kBlockN = 64;  // keys per tile
 static_assert(kBlockM == kBlockN, "the causal diagonal is one tile");
 
@@ -70,197 +115,320 @@ struct Strides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, db, dl, dh;  // d*: dO
 };
 
-// Head-dim groups of the dK/dV kernel (see the header).
-template <int D>
-constexpr int kDkvSplit = D == 256 ? 2 : 1;
-
 // ---------------------------------------------------------------------------
-// dK/dV, bf16 or f16 (T): one CTA per (key tile, h, b); each group of four
-// warps holds the tile's 64 keys, 16 per warp, and walks the query tiles.
+// dK/dV, bf16 or f16 (T): one CTA per (key tile, h, b), see the header.
 
-template <typename T, int D, bool kCausal, bool kRagged>
-__global__ void __launch_bounds__(128 * kDkvSplit<D>)
-    flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ di, T* __restrict__ dk,
-                      T* __restrict__ dv, int L, int H, Strides st,
-                      float scale, float scale_log2) {
-  constexpr int kThreads = 128 * kDkvSplit<D>;
-  constexpr int kDw = D / kDkvSplit<D>;  // head-dim columns per warp
-  constexpr int kS = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);
-  T* v_s = k_s + kBlockN * kS;
-  T* q_s = v_s + kBlockN * kS;
-  T* do_s = q_s + kBlockM * kS;
-  float* lse_s = reinterpret_cast<float*>(do_s + kBlockM * kS);
-  float* di_s = lse_s + kBlockM;
+constexpr int kWgThreads = 128;
+constexpr int kDkvThreads = 3 * kWgThreads;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int krow = (warp % 4) * 16;  // the warp's keys in the tile
-  const int d0 = (warp / 4) * kDw;   // the warp's head-dim columns
+template <int D>
+struct DkvTiles {
+  // Query rows per tile: as many as fit in a consumer's registers beside
+  // its accumulator with no spills (see the header).
+  static constexpr int kBlockM = D == 256 ? 32 : D == 128 ? 64 : 128;
+  static constexpr int kStages = 3;
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kKVPanel = kBlockN * kRowBytes;  // bytes
+  static constexpr int kQPanel = kBlockM * kRowBytes;
+  static constexpr int kKVBytes = kKVPanel * kPanels;   // the K or V tile
+  static constexpr int kQBytes = kQPanel * kPanels;     // one Q or dO tile
+  static constexpr int kRowBytesF32 = kBlockM * 4;      // one lse or di tile
+  static constexpr int kStageBytes = 2 * kQBytes + 2 * kRowBytesF32;
+  static constexpr int kSlotBytes = kBlockN * kBlockM * 4;  // P^T, f32
+  // K, V; Q and dO of every stage; lse and di of every stage; two slots.
+  static constexpr int kTileBytes =
+      2 * kKVBytes + kStages * kStageBytes + 2 * kSlotBytes;
+  // Barriers after the tiles: K/V; per stage full, empty; per slot
+  // full, empty. 1024 bytes of slack to align the base.
+  static constexpr int kBarriers = 1 + 2 * kStages + 4;
+  static constexpr int kSmemBytes = kTileBytes + 8 * kBarriers + 1024;
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
+};
+
+// Named barriers (0 is __syncthreads): each consumer's epilogue.
+constexpr int kEpilogueBarrier = 1;  // + consumer (0: dV, 1: dK)
+
+// A 64 x D accumulator, scaled and rounded to T, into the swizzled
+// panels at `tile` (64 rows of 128 bytes a panel), then out to rows
+// k0.. of the contiguous (B, L, H, D) output, rows past L left out.
+template <typename T, int D>
+__device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
+                                           float scale, unsigned char* tile,
+                                           T* out, int consumer, int k0,
+                                           int L, int H, int h, int b) {
+  constexpr int kPanelBytes = kBlockN * kRowBytes;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int t = tid & 3;
+  const int r0 = 16 * warp + g;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int chunk = (dt % 8) ^ g;  // r0 % 8 == (r0 + 8) % 8 == g
+    unsigned char* p =
+        tile + (dt / 8) * kPanelBytes + r0 * kRowBytes + chunk * 16 + t * 4;
+    *reinterpret_cast<uint32_t*>(p) =
+        pack_float2<T>(acc[4 * dt] * scale, acc[4 * dt + 1] * scale);
+    *reinterpret_cast<uint32_t*>(p + 8 * kRowBytes) =
+        pack_float2<T>(acc[4 * dt + 2] * scale, acc[4 * dt + 3] * scale);
+  }
+  named_barrier_sync(kEpilogueBarrier + consumer, kWgThreads);
+  constexpr int kChunks = D / 8;  // 16-byte chunks of an output row
+  for (int i = tid; i < kBlockN * kChunks; i += kWgThreads) {
+    const int r = i / kChunks;
+    const int ch = i % kChunks;
+    const int row = k0 + r;
+    if (row >= L) break;  // rows grow with i
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        tile + (ch / 8) * kPanelBytes + r * kRowBytes +
+        ((ch % 8) ^ (r % 8)) * 16);
+    *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(b) * L + row) *
+                                        H * D +
+                              static_cast<int64_t>(h) * D + ch * 8) = val;
+  }
+}
+
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, T* __restrict__ dk,
+                        T* __restrict__ dv, int L, int H, float scale,
+                        float scale_log2) {
+  using C = DkvTiles<D>;
+  constexpr int kBM = C::kBlockM;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle's alignment
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + C::kKVBytes;
+  const uint32_t q_s = v_s + C::kKVBytes;             // + stage * kQBytes
+  const uint32_t do_s = q_s + kStages * C::kQBytes;   // + stage * kQBytes
+  const uint32_t lse_s = do_s + kStages * C::kQBytes;  // + stage * rows
+  const uint32_t di_s = lse_s + kStages * C::kRowBytesF32;
+  const uint32_t slot_s = di_s + kStages * C::kRowBytesF32;
+  const uint32_t bars = slot_s + 2 * C::kSlotBytes;
+  const uint32_t full_kv = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto slot_full = [&](int i) { return bars + 8u * (1 + 2 * kStages + i); };
+  auto slot_empty = [&](int i) {
+    return bars + 8u * (3 + 2 * kStages + i);
+  };
+  auto at = [&](uint32_t a) { return smem + (a - base); };
+
   // Causal: key tile 0 sees every query tile, so low tiles go first.
-  const int k_tile = blockIdx.x;
+  const int k0 = blockIdx.x * kBlockN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int k0 = k_tile * kBlockN;
+  const int first = kCausal ? k0 / kBM : 0;  // the first query tile
+  const int n_tiles = (L + kBM - 1) / kBM - first;  // >= 1: k0 < L
+  // Warp-uniform as far as the compiler can tell, so that each role's
+  // register budget (setmaxnreg) holds for its whole branch.
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / kWgThreads, 0);
 
-  load_tile<D, kThreads, kRagged>(
-      k_s, k + b * st.kb + k0 * st.kl + h * st.kh, st.kl, kBlockN, L - k0);
-  load_tile<D, kThreads, kRagged>(
-      v_s, v + b * st.vb + k0 * st.vl + h * st.vh, st.vl, kBlockN, L - k0);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA leader, then warp 0's rows
+      mbar_init(empty(s), 2 * kWgThreads);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(slot_full(i), kWgThreads);
+      mbar_init(slot_empty(i), kWgThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  const T* qg = q + b * st.qb + h * st.qh;
-  const T* dg = dout + b * st.db + h * st.dh;
-  const float* lse_bh = lse + (static_cast<int64_t>(b) * H + h) * L;
-  const float* di_bh = di + (static_cast<int64_t>(b) * H + h) * L;
-
-  float dk_acc[kDw / 8][4];
-  float dv_acc[kDw / 8][4];
-#pragma unroll
-  for (int i = 0; i < kDw / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
+  if (wg == 0) {
+    // Producer: warp 0 keeps the ring full, one elected thread issuing
+    // every load. A stage is free once both consumers released its last
+    // use; a fresh barrier passes the wait on the opposite parity at
+    // once.
+    setmaxnreg_dec<kProducerRegs>();
+    const int warp = __shfl_sync(0xffffffff, (threadIdx.x / 32) % 4, 0);
+    if (warp == 0) {
+      const bool leader = elect_one();
+      if (leader) {
+        tma_prefetch_map(&tq);
+        tma_prefetch_map(&tk);
+        tma_prefetch_map(&tv);
+        tma_prefetch_map(&tdo);
+        mbar_arrive_expect_tx(full_kv, 2 * C::kKVBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load_4d(k_s + p * C::kKVPanel, &tk, full_kv, p * kPanelCols, h,
+                      k0, b);
+          tma_load_4d(v_s + p * C::kKVPanel, &tv, full_kv, p * kPanelCols, h,
+                      k0, b);
+        }
+      }
+      // (b, h)'s lse and di rows; the warp's lanes copy a tile's rows
+      // into the stage (zero past L) and arrive on its full barrier.
+      const int64_t row0 = (static_cast<int64_t>(b) * H + h) * L;
+      const int lane = threadIdx.x % 32;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int q0 = (first + j) * kBM;
+        mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
+        if (leader) {
+          mbar_arrive_expect_tx(full(s), 2 * C::kQBytes);
+          for (int p = 0; p < C::kPanels; ++p) {
+            tma_load_4d(q_s + s * C::kQBytes + p * C::kQPanel, &tq, full(s),
+                        p * kPanelCols, h, q0, b);
+            tma_load_4d(do_s + s * C::kQBytes + p * C::kQPanel, &tdo,
+                        full(s), p * kPanelCols, h, q0, b);
+          }
+        }
+        float* lse_t = reinterpret_cast<float*>(
+            at(lse_s + s * C::kRowBytesF32));
+        float* di_t = reinterpret_cast<float*>(at(di_s + s * C::kRowBytesF32));
+        for (int r = lane; r < kBM; r += 32) {
+          const bool in = q0 + r < L;
+          lse_t[r] = in ? lse[row0 + q0 + r] : 0.f;
+          di_t[r] = in ? di[row0 + q0 + r] : 0.f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+    return;
   }
 
-  const int n_q_tiles = (L + kBlockM - 1) / kBlockM;
-  for (int i = kCausal ? k_tile : 0; i < n_q_tiles; ++i) {
-    const int q0 = i * kBlockM;
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<D, kThreads, kRagged>(
-        q_s, qg + static_cast<int64_t>(q0) * st.ql, st.ql, kBlockM, L - q0);
-    // A query past L gets lse = +inf, so its P is exactly zero.
-    load_floats<kRagged>(lse_s, lse_bh + q0, kBlockM, L - q0, INFINITY);
-    cp_async_commit();
-    load_tile<D, kThreads, kRagged>(
-        do_s, dg + static_cast<int64_t>(q0) * st.dl, st.dl, kBlockM, L - q0);
-    load_floats<kRagged>(di_s, di_bh + q0, kBlockM, L - q0, 0.f);
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V, Q and lse have landed; dO may be in flight
-    __syncthreads();
+  // Consumers: c = 0 owns dV, c = 1 owns dK (see the header).
+  setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;  // fragment row group
+  const int t = tid & 3;          // thread in group
+  const int key0 = k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
 
-    // S^T = K Q^T: the warp's 16 keys x 64 queries.
-    float p[kBlockM / 8][4];
+  float acc[D / 2];  // dV or dK
 #pragma unroll
-    for (int n = 0; n < kBlockM / 8; ++n)
-      p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const T* ka = k_s + (krow + g) * kS + kd * 16 + 2 * t;
-      const uint32_t a0 = ld_pair(ka);
-      const uint32_t a1 = ld_pair(ka + 8 * kS);
-      const uint32_t a2 = ld_pair(ka + 8);
-      const uint32_t a3 = ld_pair(ka + 8 * kS + 8);
-#pragma unroll
-      for (int n = 0; n < kBlockM / 8; ++n) {
-        const T* qb = q_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816<T>(p[n], a0, a1, a2, a3, ld_pair(qb), ld_pair(qb + 8));
-      }
-    }
-    // P^T = exp(scale S^T - lse[query]), zero above the diagonal and for
-    // queries past L.
-    const bool diag = kCausal && i == k_tile;
-#pragma unroll
-    for (int n = 0; n < kBlockM / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);    // query in the tile
-        const int row = krow + g + (e >= 2 ? 8 : 0);  // key in the tile
-        const float x = exp2f(fmaf(p[n][e], scale_log2,
-                                   -lse_s[col] * kLog2e));
-        p[n][e] = ((diag && row > col) || (kRagged && q0 + col >= L))
-                      ? 0.f : x;
-      }
-    }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[kBM / 2];           // S^T, then P^T (c = 0); dP^T, then dS^T
+  uint32_t pa[kBM / 16][4];    // P^T or dS^T, the A operand
+  // The scores product reads K (c = 0) or V (c = 1) against Q or dO of
+  // the stage; the gradient product reads dO (c = 0) or Q (c = 1).
+  const uint32_t kv_tile = c == 0 ? k_s : v_s;
+  const uint32_t scores_b = c == 0 ? q_s : do_s;
+  const uint32_t grad_b = c == 0 ? do_s : q_s;
+  // Uniform across the warpgroup: does tile j cross the diagonal or L?
+  auto masked = [&](int q0) {
+    return (kCausal && q0 < k0 + kBlockN - 1) || q0 + kBM > L;
+  };
 
-    cp_async_wait<0>();
-    __syncthreads();  // dO and di visible to every warp
+  mbar_wait(full_kv, 0);
+  mbar_wait(full(0), 0);
+  issue_kmajor<T, D, kBM, C::kKVPanel, C::kQPanel>(sc, kv_tile, scores_b);
+  wgmma_wait<0>();
+  reg_fence(sc);
 
-    // dV += P^T dO.
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int q0 = (first + j) * kBM;
+    // P^T's slot for this tile, in float4s: 16 bytes of thread tid at
+    // [n * 128 + tid], the order of the scores accumulator.
+    float4* const slot = reinterpret_cast<float4*>(
+        at(slot_s + (j & 1) * C::kSlotBytes));
+    if (c == 0) {
+      // P^T = exp2(scale_log2 S^T - lse log2e), zero above the diagonal
+      // and for queries at or past L.
+      const float* lse_t = reinterpret_cast<const float*>(
+          at(lse_s + s * C::kRowBytesF32));
+      const bool mask = masked(q0);
 #pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      const uint32_t a0 = pack_float2<T>(p[2 * kk][0], p[2 * kk][1]);
-      const uint32_t a1 = pack_float2<T>(p[2 * kk][2], p[2 * kk][3]);
-      const uint32_t a2 = pack_float2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      const uint32_t a3 = pack_float2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      const T* ob = do_s + (kk * 16 + 2 * t) * kS + d0 + g;
+      for (int n = 0; n < kBM / 8; ++n) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lse_t + 8 * n + 2 * t);
 #pragma unroll
-      for (int dt = 0; dt < kDw / 8; ++dt) {
-        const T* x = ob + dt * 8;
-        mma_16816<T>(dv_acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
-                     pack_pair(x[8 * kS], x[9 * kS]));
+        for (int i = 0; i < 4; ++i) {
+          const int col = 8 * n + 2 * t + (i & 1);  // query in the tile
+          float x = exp2f(fmaf(sc[4 * n + i], scale_log2,
+                               -((i & 1) ? l2.y : l2.x) * kLog2e));
+          if (mask) {
+            const int key = key0 + 8 * (i >> 1);
+            if ((kCausal && key > q0 + col) || q0 + col >= L) x = 0.f;
+          }
+          sc[4 * n + i] = x;
+        }
       }
-    }
-
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - di[query]) in place.
-    float ds[kBlockM / 8][4];
+      // Hand P^T to warpgroup 1 once it has read this slot's last use.
+      if (j >= 2) mbar_wait(slot_empty(j & 1), ((j >> 1) - 1) & 1);
 #pragma unroll
-    for (int n = 0; n < kBlockM / 8; ++n)
-      ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+      for (int n = 0; n < kBM / 8; ++n)
+        slot[n * kWgThreads + tid] =
+            make_float4(sc[4 * n], sc[4 * n + 1], sc[4 * n + 2],
+                        sc[4 * n + 3]);
+      mbar_arrive(slot_full(j & 1));
+    } else {
+      // dS^T = P^T (dP^T - di), P^T from warpgroup 0's slot; zero for
+      // queries at or past L.
+      const float* di_t = reinterpret_cast<const float*>(
+          at(di_s + s * C::kRowBytesF32));
+      const bool ragged = q0 + kBM > L;
+      mbar_wait(slot_full(j & 1), (j >> 1) & 1);
 #pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const T* va = v_s + (krow + g) * kS + kd * 16 + 2 * t;
-      const uint32_t a0 = ld_pair(va);
-      const uint32_t a1 = ld_pair(va + 8 * kS);
-      const uint32_t a2 = ld_pair(va + 8);
-      const uint32_t a3 = ld_pair(va + 8 * kS + 8);
+      for (int n = 0; n < kBM / 8; ++n) {
+        const float4 p = slot[n * kWgThreads + tid];
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(di_t + 8 * n + 2 * t);
+        sc[4 * n] = p.x * (sc[4 * n] - d2.x);
+        sc[4 * n + 1] = p.y * (sc[4 * n + 1] - d2.y);
+        sc[4 * n + 2] = p.z * (sc[4 * n + 2] - d2.x);
+        sc[4 * n + 3] = p.w * (sc[4 * n + 3] - d2.y);
+        if (ragged) {
 #pragma unroll
-      for (int n = 0; n < kBlockM / 8; ++n) {
-        const T* ob = do_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816<T>(ds[n], a0, a1, a2, a3, ld_pair(ob), ld_pair(ob + 8));
+          for (int i = 0; i < 4; ++i)
+            if (q0 + 8 * n + 2 * t + (i & 1) >= L) sc[4 * n + i] = 0.f;
+        }
       }
+      mbar_arrive(slot_empty(j & 1));
     }
+    // The gradient product of tile j - 1 has retired (nothing is in
+    // flight at j = 0): release its stage and take the A operand's
+    // registers for tile j.
+    wgmma_wait<0>();
+    reg_fence(acc);
+    if (j > 0) mbar_arrive(empty((j - 1) % kStages));
 #pragma unroll
-    for (int n = 0; n < kBlockM / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = p[n][e] * (ds[n][e] - di_s[n * 8 + 2 * t + (e & 1)]);
+    for (int kk = 0; kk < kBM / 16; ++kk) {
+      pa[kk][0] = pack_float2<T>(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_float2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_float2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_float2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
-
-    // dK += dS^T Q (scaled once at the end).
-#pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      const uint32_t a0 = pack_float2<T>(ds[2 * kk][0], ds[2 * kk][1]);
-      const uint32_t a1 = pack_float2<T>(ds[2 * kk][2], ds[2 * kk][3]);
-      const uint32_t a2 = pack_float2<T>(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-      const uint32_t a3 = pack_float2<T>(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
-      const T* qb = q_s + (kk * 16 + 2 * t) * kS + d0 + g;
-#pragma unroll
-      for (int dt = 0; dt < kDw / 8; ++dt) {
-        const T* x = qb + dt * 8;
-        mma_16816<T>(dk_acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
-                     pack_pair(x[8 * kS], x[9 * kS]));
-      }
-    }
+    if (j + 1 == n_tiles) break;
+    // The scores product of tile j + 1, then the gradient product of
+    // tile j; tile j + 1's scores are worked on while the latter runs.
+    const int sn = (j + 1) % kStages;
+    mbar_wait(full(sn), ((j + 1) / kStages) & 1);
+    issue_kmajor<T, D, kBM, C::kKVPanel, C::kQPanel>(
+        sc, kv_tile, scores_b + sn * C::kQBytes);
+    issue_rs<T, kBM, D, C::kQPanel>(acc, pa, grad_b + s * C::kQBytes);
+    wgmma_wait<1>();
+    reg_fence(sc);
   }
+  // The last tile's gradient product.
+  const int sl = (n_tiles - 1) % kStages;
+  issue_rs<T, kBM, D, C::kQPanel>(acc, pa, grad_b + sl * C::kQBytes);
+  wgmma_wait<0>();
+  reg_fence(acc);
+  mbar_arrive(empty(sl));
 
-  const int r0 = k0 + krow + g;
-  const int r1 = r0 + 8;
-  const int64_t o0 = (static_cast<int64_t>(b) * L + r0) * H * D +
-                     static_cast<int64_t>(h) * D;
-  const int64_t o1 = (static_cast<int64_t>(b) * L + r1) * H * D +
-                     static_cast<int64_t>(h) * D;
-#pragma unroll
-  for (int dt = 0; dt < kDw / 8; ++dt) {
-    const int c = d0 + dt * 8 + 2 * t;
-    if (!kRagged || r0 < L) {
-      *reinterpret_cast<uint32_t*>(dk + o0 + c) =
-          pack_float2<T>(dk_acc[dt][0] * scale, dk_acc[dt][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + o0 + c) =
-          pack_float2<T>(dv_acc[dt][0], dv_acc[dt][1]);
-    }
-    if (!kRagged || r1 < L) {
-      *reinterpret_cast<uint32_t*>(dk + o1 + c) =
-          pack_float2<T>(dk_acc[dt][2] * scale, dk_acc[dt][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + o1 + c) =
-          pack_float2<T>(dv_acc[dt][2], dv_acc[dt][3]);
-    }
-  }
+  // dV into K's tile and dK into V's: each consumer is the only reader
+  // of the tile it overwrites, and its last product has retired.
+  if (c == 0)
+    store_tile<T, D>(acc, 1.f, at(k_s), dv, 0, k0, L, H, h, b);
+  else
+    store_tile<T, D>(acc, scale, at(v_s), dk, 1, k0, L, H, h, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -569,73 +737,82 @@ struct Args {
   cudaStream_t stream;
 };
 
-int tiles(int L) { return (L + kBlockM - 1) / kBlockM; }
+int tiles(int L) { return (L + kBlockN - 1) / kBlockN; }
 
-template <typename T, int D, bool kCausal, bool kRagged>
-cudaError_t dkv_mma(const Args& a) {
-  auto kernel = flash_bwd_dkv_mma<T, D, kCausal, kRagged>;
-  constexpr int kThreads = 128 * kDkvSplit<D>;
-  const int smem = (2 * kBlockN + 2 * kBlockM) * (D + kPad) * sizeof(T) +
-                   2 * kBlockM * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles(a.L), a.H, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.L, a.H, a.st, a.scale,
-      a.scale * kLog2e);
-  return cudaGetLastError();
+template <typename T, int D, bool kCausal>
+int dkv_wgmma(const Args& a) {
+  using C = DkvTiles<D>;
+  constexpr bool kF16 = !kIsBf16<T>;
+  const Strides& st = a.st;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = encode(&tq, a.q, kF16, a.B, a.L, a.H, D, st.qb, st.ql, st.qh,
+                   C::kBlockM);
+  if (err == 0)
+    err = encode(&tk, a.k, kF16, a.B, a.L, a.H, D, st.kb, st.kl, st.kh,
+                 kBlockN);
+  if (err == 0)
+    err = encode(&tv, a.v, kF16, a.B, a.L, a.H, D, st.vb, st.vl, st.vh,
+                 kBlockN);
+  if (err == 0)
+    err = encode(&tdo, a.dout, kF16, a.B, a.L, a.H, D, st.db, st.dl, st.dh,
+                 C::kBlockM);
+  if (err != 0) return err;
+  auto kernel = flash_bwd_dkv_wgmma<T, D, kCausal>;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  kernel<<<dim3(tiles(a.L), a.H, a.B), kDkvThreads, C::kSmemBytes,
+           a.stream>>>(tq, tk, tv, tdo, a.lse, a.di, static_cast<T*>(a.dk),
+                       static_cast<T*>(a.dv), a.L, a.H, a.scale,
+                       a.scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D, bool kCausal, bool kRagged>
-cudaError_t dq_mma(const Args& a) {
+int dq_mma(const Args& a) {
   auto kernel = flash_bwd_dq_mma<T, D, kCausal, kRagged>;
   const int smem = (2 * kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(tiles(a.L), a.H, a.B), kDqThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(a.dq), a.L, a.H, a.st, a.scale, a.scale * kLog2e);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kCausal>
-cudaError_t dkv_f32(const Args& a) {
+int dkv_f32(const Args& a) {
   flash_bwd_dkv_f32<D, kCausal>
       <<<dim3(tiles(a.L), a.H, a.B), kF32Threads, 0, a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           a.lse, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
           a.L, a.H, a.st, a.scale);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kCausal>
-cudaError_t dq_f32(const Args& a) {
+int dq_f32(const Args& a) {
   flash_bwd_dq_f32<D, kCausal>
       <<<dim3(tiles(a.L), a.H, a.B), kF32Threads, 0, a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           a.lse, a.di, static_cast<float*>(a.dq), a.L, a.H, a.st, a.scale);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
-typedef cudaError_t (*Launcher)(const Args&);
+typedef int (*Launcher)(const Args&);
 
-template <typename T, int D, bool kRagged>
-Launcher pick_mma(bool dkv, int causal) {
-  if (dkv)
-    return causal ? dkv_mma<T, D, true, kRagged> : dkv_mma<T, D, false, kRagged>;
-  return causal ? dq_mma<T, D, true, kRagged> : dq_mma<T, D, false, kRagged>;
-}
-
+// The 16-bit kernels: dK/dV takes any L in one instantiation; dQ runs
+// its guarded instantiation only for a ragged L.
 template <typename T, int D>
-Launcher pick_mma(bool dkv, int causal, bool ragged) {
-  return ragged ? pick_mma<T, D, true>(dkv, causal)
-                : pick_mma<T, D, false>(dkv, causal);
+Launcher pick_16(bool dkv, int causal, bool ragged) {
+  if (dkv) return causal ? dkv_wgmma<T, D, true> : dkv_wgmma<T, D, false>;
+  if (ragged)
+    return causal ? dq_mma<T, D, true, true> : dq_mma<T, D, false, true>;
+  return causal ? dq_mma<T, D, true, false> : dq_mma<T, D, false, false>;
 }
 
 template <int D>
@@ -644,30 +821,32 @@ Launcher pick(bool dkv, int dtype, int causal, bool ragged) {
     if (dkv) return causal ? dkv_f32<D, true> : dkv_f32<D, false>;
     return causal ? dq_f32<D, true> : dq_f32<D, false>;
   }
-  return dtype == 2 ? pick_mma<f16, D>(dkv, causal, ragged)
-                    : pick_mma<bf16, D>(dkv, causal, ragged);
+  return dtype == 2 ? pick_16<f16, D>(dkv, causal, ragged)
+                    : pick_16<bf16, D>(dkv, causal, ragged);
 }
 
 int launch(bool dkv, int dtype, int D, int causal, const Args& a) {
   if (a.L < 1 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Launcher fn = nullptr;
+  const bool ragged = a.L % kBlockM != 0;
   switch (D) {
-    case 64: fn = pick<64>(dkv, dtype, causal, a.L % kBlockM != 0); break;
-    case 128: fn = pick<128>(dkv, dtype, causal, a.L % kBlockM != 0); break;
-    case 256: fn = pick<256>(dkv, dtype, causal, a.L % kBlockM != 0); break;
+    case 64: fn = pick<64>(dkv, dtype, causal, ragged); break;
+    case 128: fn = pick<128>(dkv, dtype, causal, ragged); break;
+    case 256: fn = pick<256>(dkv, dtype, causal, ragged); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(fn(a));
+  return fn(a);
 }
 
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32, 2 = float16. L >= 1. Strides are in
 // elements (q, k, v, dO, each (b, l, h)); the head dim must be
-// contiguous. lse and di are
-// (B, H, L) float32, contiguous; the outputs are (B, L, H, D),
-// contiguous. Each returns the cudaError_t of its launch.
+// contiguous. lse and di are (B, H, L) float32, contiguous; the outputs
+// are (B, L, H, D), contiguous. Each returns the
+// cudaError_t of its launch; the 16-bit dK/dV kernel returns
+// kTensorMapError + the CUresult of a failed tensor-map encode.
 extern "C" int hvd_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dk, void* dv, int dtype, int B,
@@ -698,4 +877,15 @@ extern "C" int hvd_flash_attention_bwd_dq(
                        d_sb, d_sl, d_sh},
                scale, static_cast<cudaStream_t>(stream)};
   return launch(false, dtype, D, causal, a);
+}
+
+// The 16-bit dK/dV kernel's dynamic shared memory for head dim D (0 for
+// a D it is not built for); ptxas reports only static shared memory.
+extern "C" int hvd_flash_attention_bwd_dkv_smem_bytes(int D) {
+  switch (D) {
+    case 64: return DkvTiles<64>::kSmemBytes;
+    case 128: return DkvTiles<128>::kSmemBytes;
+    case 256: return DkvTiles<256>::kSmemBytes;
+    default: return 0;
+  }
 }

@@ -95,8 +95,6 @@ constexpr int kWgThreads = 128;
 constexpr int kThreads = kWgThreads * (1 + kConsumers);
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kPanelCols = 64;  // 16-bit columns of one swizzled panel
-constexpr int kRowBytes = 128;  // bytes of one panel row
 
 template <int D>
 struct FwdTiles {
@@ -122,36 +120,6 @@ struct FwdTiles {
 // warpgroup, and the two that take the consumers' products in turns.
 constexpr int kEpilogueBarrier = 1;   // + c
 constexpr int kSchedBarrier = 3;      // + c: warpgroup c's turn
-
-// S = Q K^T of one key tile into sc (m64 x kBlockN per warpgroup):
-// issued and committed, not waited for.
-template <typename T, int D, int kBlockN, int kQPanel, int kKVPanel>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBlockN / 2],
-                                         uint32_t qa, uint32_t kb) {
-  wgmma_fence();
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    const uint32_t off = (kd % 4) * 32;
-    wgmma_ss<T, kBlockN>(sc,
-                         smem_desc(qa + (kd / 4) * kQPanel + off, 16, 1024),
-                         smem_desc(kb + (kd / 4) * kKVPanel + off, 16, 1024),
-                         kd > 0);
-  }
-  wgmma_commit();
-}
-
-// O += P V of one key tile, P in registers: issued and committed.
-template <typename T, int D, int kBlockN, int kKVPanel>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[kBlockN / 16][4],
-                                         uint32_t vb) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk)
-    wgmma_rs<T, D>(acc, pa[kk],
-                   smem_desc(vb + kk * 16 * kRowBytes, kKVPanel, 1024), 1);
-  wgmma_commit();
-}
 
 // The online softmax of one tile's scores, in place: scale into the log2
 // domain, mask above the diagonal and past the ragged end of the keys
@@ -356,7 +324,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // Turn 0: S of tile 0.
       named_barrier_sync(kSchedBarrier + c, 2 * kWgThreads);
       mbar_wait(full_k(0), 0);
-      issue_qk<T, D, kBlockN, C::kQPanel, C::kKVPanel>(sc, qa, k_s);
+      issue_kmajor<T, D, kBlockN, C::kQPanel, C::kKVPanel>(sc, qa, k_s);
       named_barrier_arrive(kSchedBarrier + 1 - c, 2 * kWgThreads);
       wgmma_wait<0>();
       reg_fence(sc);
@@ -373,10 +341,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int sp = (j - 1) % kStages;
         named_barrier_sync(kSchedBarrier + c, 2 * kWgThreads);
         mbar_wait(full_k(s), (j / kStages) & 1);
-        issue_qk<T, D, kBlockN, C::kQPanel, C::kKVPanel>(
+        issue_kmajor<T, D, kBlockN, C::kQPanel, C::kKVPanel>(
             sc, qa, k_s + s * C::kKVBytes);
         mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
-        issue_pv<T, D, kBlockN, C::kKVPanel>(acc, pa, v_s + sp * C::kKVBytes);
+        issue_rs<T, kBlockN, D, C::kKVPanel>(acc, pa, v_s + sp * C::kKVBytes);
         named_barrier_arrive(kSchedBarrier + 1 - c, 2 * kWgThreads);
         wgmma_wait<1>();  // S is done; P V may still run
         reg_fence(sc);
@@ -395,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       named_barrier_sync(kSchedBarrier + c, 2 * kWgThreads);
       const int sl = (n_tiles - 1) % kStages;
       mbar_wait(full_v(sl), ((n_tiles - 1) / kStages) & 1);
-      issue_pv<T, D, kBlockN, C::kKVPanel>(acc, pa, v_s + sl * C::kKVBytes);
+      issue_rs<T, kBlockN, D, C::kKVPanel>(acc, pa, v_s + sl * C::kKVBytes);
       if (c == 0) named_barrier_arrive(kSchedBarrier + 1, 2 * kWgThreads);
       wgmma_wait<0>();
       reg_fence(acc);
@@ -405,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = j % kStages;
         const uint32_t parity = (j / kStages) & 1;
         mbar_wait(full_k(s), parity);
-        issue_qk<T, D, kBlockN, C::kQPanel, C::kKVPanel>(
+        issue_kmajor<T, D, kBlockN, C::kQPanel, C::kKVPanel>(
             sc, qa, k_s + s * C::kKVBytes);
         wgmma_wait<0>();
         reg_fence(sc);
@@ -415,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                          t, L, scale_log2);
         rescale_and_pack<T, D, kBlockN>(acc, pa, sc, corr0, corr1);
         mbar_wait(full_v(s), parity);
-        issue_pv<T, D, kBlockN, C::kKVPanel>(acc, pa, v_s + s * C::kKVBytes);
+        issue_rs<T, kBlockN, D, C::kKVPanel>(acc, pa, v_s + s * C::kKVBytes);
         wgmma_wait<0>();
         reg_fence(acc);
         mbar_arrive(empty_v(s));
@@ -527,62 +495,6 @@ __global__ void __launch_bounds__(kF32Rows)
   for (int d = 0; d < D; ++d) orow[d] = acc[d] * inv;
   lse[(static_cast<int64_t>(b) * H + h) * L + row] =
       l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry
-// point so the library does not link libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Returned for a failed encode: kTensorMapError + the CUresult (or + 0
-// when the driver has no cuTensorMapEncodeTiled).
-constexpr int kTensorMapError = 100000;
-
-// A rank-4 map over (D, H, L, B) of a 16-bit tensor with strides in
-// elements, read in boxes of 64 columns x `rows` rows, 128-byte swizzle.
-int encode(CUtensorMap* map, const void* ptr, bool f16, int B, int L, int H,
-           int D, int64_t sb, int64_t sl, int64_t sh, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kTensorMapError;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sl) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kPanelCols, 1, static_cast<cuuint32_t>(rows),
-                             1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
 }
 
 typedef int (*Launcher)(const void*, const void*, const void*, void*,

@@ -1,7 +1,8 @@
-// Building blocks shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): the 16-bit tensor-core
-// product (bf16 or f16 operands, f32 accumulate), fragment packing,
-// cp.async copies and the padded, zero-filled tile load.
+// Building blocks of the flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): the 16-bit types,
+// constants and fragment packing they all use, and, for the dQ kernel,
+// the mma.sync tensor-core product (bf16 or f16 operands, f32
+// accumulate), cp.async copies and the padded, zero-filled tile load.
 //
 // Fragment layouts of mma.sync.m16n8k16 (row.col), g = lane / 4 and
 // t = lane % 4: A (16 x 16, row-major) a0 = A[g][2t..2t+1],
@@ -122,29 +123,14 @@ __device__ __forceinline__ void load_tile(T* s, const T* g,
   for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
-    if (!kGuard) {
+    if constexpr (kGuard) {
+      const bool ok = r < valid;
+      cp_async16_zfill(s + r * (D + kPad) + c,
+                       ok ? g + r * row_stride + c : g, ok);
+    } else {
       cp_async16(s + r * (D + kPad) + c, g + r * row_stride + c);
-      continue;
     }
-    const bool ok = r < valid;
-    cp_async16_zfill(s + r * (D + kPad) + c,
-                     ok ? g + r * row_stride + c : g, ok);
   }
-}
-
-// n floats into shared memory. With kGuard: plain loads, entries at or
-// past `valid` get `fill`, visible after the block's next __syncthreads.
-// Without it: n % 4 == 0, 16-byte aligned, cp.async.
-template <bool kGuard>
-__device__ __forceinline__ void load_floats(float* s, const float* g, int n,
-                                            int valid, float fill) {
-  if (kGuard) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      s[i] = i < valid ? g[i] : fill;
-    return;
-  }
-  for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
-    cp_async16(s + 4 * i, g + 4 * i);
 }
 
 }  // namespace hvd_flash

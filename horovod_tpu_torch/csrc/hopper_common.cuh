@@ -1,8 +1,9 @@
-// Hopper building blocks of the flash-attention forward
-// (flash_attention_fwd.cu): mbarriers, TMA tile loads, warpgroup
-// register reallocation and the asynchronous warpgroup product (wgmma)
-// with its shared-memory descriptors. The mma.sync helpers that the
-// backward kernels share with the float32 path stay in flash_common.cuh.
+// Hopper building blocks of the flash-attention forward and of the dK/dV
+// backward kernel (flash_attention_fwd.cu, flash_attention_bwd.cu):
+// mbarriers, TMA tile loads and the host-side tensor-map encoder,
+// warpgroup register reallocation and the asynchronous warpgroup product
+// (wgmma) with its shared-memory descriptors. The mma.sync helpers that
+// the dQ kernel shares with the float32 path stay in flash_common.cuh.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a
 // tile of R rows and 64 16-bit columns (one "panel", 128 bytes a row)
@@ -17,6 +18,8 @@
 //   transpose bit): 64 output columns a row, the next 64 one panel on
 //   (LBO = the panel's bytes), 8 key rows 1024 bytes on (SBO); the
 //   k-th slice of 16 keys starts 2048 * k bytes into every panel.
+// So one TMA layout serves both kinds of descriptor: a tile of Q is
+// K-major in S = Q K^T and MN-major in dK += dS^T Q.
 //
 // Fragment layouts of wgmma m64nNk16 for warp w (0..3) of the
 // warpgroup, g = lane / 4, t = lane % 4: accumulator d[4j + i] is
@@ -31,6 +34,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -132,6 +136,9 @@ __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
 
 // --- TMA ----------------------------------------------------------------
 
+constexpr int kPanelCols = 64;  // 16-bit columns of one swizzled panel
+constexpr int kRowBytes = 128;  // bytes of one panel row
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -151,6 +158,63 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point so the libraries do not link libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Returned for a failed encode: kTensorMapError + the CUresult (or + 0
+// when the driver has no cuTensorMapEncodeTiled).
+constexpr int kTensorMapError = 100000;
+
+// A rank-4 map over (D, H, L, B) of a 16-bit tensor with strides in
+// elements, read in boxes of 64 columns x `rows` rows, 128-byte swizzle.
+inline int encode(CUtensorMap* map, const void* ptr, bool f16, int B, int L,
+                  int H, int D, int64_t sb, int64_t sl, int64_t sh,
+                  int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kTensorMapError;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kPanelCols, 1, static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
 }
 
 // --- warpgroup registers -----------------------------------------------
@@ -202,6 +266,19 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 // for a 16-bit input type TY ("bf16" or "f16"). SS: A and B from shared
 // memory, both K-major. RS: A from registers, B from shared memory,
 // MN-major (transposed). scale_d == 0 overwrites d, 1 accumulates.
+
+#define HVD_WGMMA_SS_N32(TY)                                                \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY               \
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15}, "                                                              \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15])                                                         \
+      : "l"(a), "l"(b), "r"(scale_d))
 
 #define HVD_WGMMA_SS_N64(TY)                                                \
   asm volatile(                                                             \
@@ -364,9 +441,12 @@ constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 96 || N == 128,
-                "wgmma_ss: N is 64, 96 or 128");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128,
+                "wgmma_ss: N is 32, 64, 96 or 128");
+  if constexpr (N == 32) {
+    if constexpr (kIsBf16<T>) HVD_WGMMA_SS_N32("bf16");
+    else HVD_WGMMA_SS_N32("f16");
+  } else if constexpr (N == 64) {
     if constexpr (kIsBf16<T>) HVD_WGMMA_SS_N64("bf16");
     else HVD_WGMMA_SS_N64("f16");
   } else if constexpr (N == 96) {
@@ -396,6 +476,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     if constexpr (kIsBf16<T>) HVD_WGMMA_RS_N256("bf16");
     else HVD_WGMMA_RS_N256("f16");
   }
+}
+
+// d (m64 x N) = A B^T over a reduction of K columns, A (64 rows) and B
+// (N rows) both K-major in swizzled panels of kAPanel and kBPanel bytes
+// (S = Q K^T in the forward; S^T = K Q^T and dP^T = V dO^T in dK/dV):
+// issued and committed, not waited for.
+template <typename T, int K, int N, int kAPanel, int kBPanel>
+__device__ __forceinline__ void issue_kmajor(float (&d)[N / 2], uint32_t a,
+                                             uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kd = 0; kd < K / 16; ++kd) {
+    const uint32_t off = (kd % 4) * 32;
+    wgmma_ss<T, N>(d, smem_desc(a + (kd / 4) * kAPanel + off, 16, 1024),
+                   smem_desc(b + (kd / 4) * kBPanel + off, 16, 1024),
+                   kd > 0);
+  }
+  wgmma_commit();
+}
+
+// d (m64 x N) += A B over a reduction of K rows, A in registers (the
+// 16-bit A fragments of K / 16 slices) and B MN-major in swizzled panels
+// of kBPanel bytes (O += P V in the forward; dV += P^T dO and dK +=
+// dS^T Q in dK/dV): issued and committed, not waited for.
+template <typename T, int K, int N, int kBPanel>
+__device__ __forceinline__ void issue_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[K / 16][4],
+                                         uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<T, N>(d, a[kk],
+                   smem_desc(b + kk * 16 * kRowBytes, kBPanel, 1024), 1);
+  wgmma_commit();
 }
 
 }  // namespace hvd_hopper

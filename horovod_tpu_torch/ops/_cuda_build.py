@@ -46,7 +46,9 @@ LIBRARIES = {
         "hvd_flash_attention_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [_LL] * 12
         + _FLASH_TAIL,
         "hvd_flash_attention_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [_LL] * 12
-        + _FLASH_TAIL},
+        + _FLASH_TAIL,
+        # D -> the 16-bit dK/dV kernel's dynamic shared memory in bytes
+        "hvd_flash_attention_bwd_dkv_smem_bytes": [_INT]},
     "adasum_pair_combine": {
         # a, b, scratch, stats, dtype, n, stream
         "hvd_adasum_partials": [_PTR] * 4 + [_INT, _LL, _PTR],

@@ -47,8 +47,8 @@ from ._cuda_build import load_library
 
 KERNEL_HEAD_DIMS = (64, 128, 256)   # the widths the kernels are built for
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
-# hvd_flash_attention_fwd's code for a failed tensor-map encode, plus
-# the CUresult.
+# The code hvd_flash_attention_fwd and hvd_flash_attention_bwd_dkv return
+# for a failed tensor-map encode, plus the CUresult.
 _TENSOR_MAP_ERROR = 100000
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
@@ -309,7 +309,8 @@ def backward_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     D = q.shape[-1]
-    lse = lse.contiguous()
+    if not lse.is_contiguous() or lse.data_ptr() % 16:
+        lse = lse.clone(memory_format=torch.contiguous_format)  # TMA reads it
     di = backward_di(o, do)           # o itself is not read by the kernels
     q, k, v, do = (pad_head_dim(t, kernel_head_dim(D))
                    for t in (q, k, v, do))
@@ -325,7 +326,7 @@ def _bwd_call(entry: str, q, k, v, do, lse, di, outs, causal: bool,
               scale: float) -> None:
     """Launch one backward kernel on q's device and current stream.
     The caller has checked shapes, types and strides (lse and di are
-    contiguous (B, H, L) float32)."""
+    contiguous, 16-byte aligned (B, H, L) float32)."""
     B, L, H, D = q.shape
     fn = getattr(load_library("flash_attention_bwd"), entry)
     with torch.cuda.device(q.device):
@@ -335,6 +336,12 @@ def _bwd_call(entry: str, q, k, v, do, lse, di, outs, causal: bool,
                  H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *do.stride()[:3], int(bool(causal)), scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash_attention_bwd: {entry}: tensor-map "
+                           f"encode failed with CUresult "
+                           f"{err - _TENSOR_MAP_ERROR} (strides "
+                           f"{q.stride()}, {k.stride()}, {v.stride()}, "
+                           f"{do.stride()})")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: {entry} launch failed "
                            f"with cudaError_t {err}")

@@ -12,7 +12,9 @@ warm-ups):
   (4, 2048, 32, 128) non-causal, at head dim 64, in float16, at ragged
   lengths (L = 1000 and 2047, the latter beside the whole-tile 2048),
   and at head dim 256 (2, 2048, 16, 256);
-- K3-bwd dK/dV and dQ at (2, 2048, 32, 128) causal bf16;
+- K3-bwd dK/dV and dQ at (2, 2048, 32, 128) causal bf16, non-causal,
+  at head dim 64, in float16, at ragged lengths (L = 1000 and 2047),
+  and at head dim 256 (2, 2048, 16, 256);
 - F.scaled_dot_product_attention at the first shape, as a yardstick.
 
 With ``--e2e`` it also times what the forward moves end to end, at
@@ -44,6 +46,15 @@ FWD_CASES = [("fwd_b4", (4, 2048, 32, 128), True, "bfloat16"),
              ("fwd_b4_l1000", (4, 1000, 32, 128), True, "bfloat16"),
              ("fwd_b4_l2047", (4, 2047, 32, 128), True, "bfloat16"),
              ("fwd_b2_d256", (2, 2048, 16, 256), True, "bfloat16")]
+# The backward's cases, timed for dK/dV and dQ as ``dkv_<name>_ms`` and
+# ``dq_<name>_ms``.
+BWD_CASES = [("b2", (2, 2048, 32, 128), True, "bfloat16"),
+             ("b2_noncausal", (2, 2048, 32, 128), False, "bfloat16"),
+             ("b2_d64", (2, 2048, 32, 64), True, "bfloat16"),
+             ("b2_f16", (2, 2048, 32, 128), True, "float16"),
+             ("b2_l1000", (2, 1000, 32, 128), True, "bfloat16"),
+             ("b2_l2047", (2, 2047, 32, 128), True, "bfloat16"),
+             ("b2_d256", (2, 2048, 16, 256), True, "bfloat16")]
 LLAMA2_7B = dict(vocab=32000, d_model=4096, n_layers=32, n_heads=32,
                  n_kv_heads=32, head_dim=128, d_ff=11008, max_seq=2048)
 
@@ -75,16 +86,19 @@ def kernels(torch, fa, dev):
                 torch, lambda: torch.nn.functional.
                 scaled_dot_product_attention(qt, kt, vt, is_causal=True))
         del q, k, v
-    q, k, v, do = (torch.randn((2, 2048, 32, 128), generator=gen,
-                               device=dev).to(torch.bfloat16)
-                   for _ in range(4))
-    o, lse = fa.flash_attention_fwd(q, k, v, True)
-    di = fa.backward_di(o, do)
-    scale = 128 ** -0.5
-    out["dkv_b2_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-        q, k, v, do, lse, di, True, scale))
-    out["dq_b2_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-        q, k, v, do, lse, di, True, scale))
+    for name, shape, causal, dtype in BWD_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        di = fa.backward_di(o, do)
+        scale = shape[-1] ** -0.5
+        out[f"dkv_{name}_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, di,
+                                                      causal, scale))
+        out[f"dq_{name}_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, di,
+                                                     causal, scale))
+        del q, k, v, do, o, lse, di
     return out
 
 

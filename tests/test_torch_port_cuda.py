@@ -26,6 +26,7 @@ the reasons it gives. Adasum: chip_smoke's TOL_DOT and TOL_COMBINE
 gradients one bf16 rounding (TOL_COMBINE[bf16]).
 """
 
+import subprocess
 import time
 
 import numpy as np
@@ -261,6 +262,115 @@ def test_backward_is_bitwise_repeatable(card):
     for _ in range(3):
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# ---------------------------------------------------------------------------
+# The dK/dV kernel (wgmma, TMA query ring): 64 keys a CTA, query tiles of
+# 128 rows at D = 64, 64 at D = 128 and 32 at D = 256, one instantiation
+# for any L.
+
+def _dkv_and_plain(q, k, v, do, causal):
+    """(dk, dv) of the dK/dV kernel alone and of the plain backward."""
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    di = fa.backward_di(o, do)
+    before = fa.launches_dkv
+    got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal,
+                                     q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launches_dkv == before + 1
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)[1:]
+    return got, ref
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,L", [(128, 1), (128, 63), (128, 64),
+                                 (128, 65), (128, 127), (128, 129),
+                                 (128, 2047), (64, 1), (64, 65),
+                                 (64, 127), (64, 129), (64, 2047),
+                                 (256, 1), (256, 31),
+                                 (256, 33), (256, 65), (256, 1000)])
+def test_dkv_kernel_at_lengths_around_its_tiles(card, D, L, causal):
+    q, k, v, do = _bwd_inputs(card, (2, L, 2, D), torch.bfloat16, seed=L)
+    (dk, dv), (dk_ref, dv_ref) = _dkv_and_plain(q, k, v, do, causal)
+    assert all(g.shape == q.shape and g.is_contiguous() for g in (dk, dv))
+    tol = chip_smoke.TOL_SLICE[torch.bfloat16]
+    assert chip_smoke.slice_rel_err(dv, dv_ref) <= tol
+    if L == 1:
+        # One key: a softmax over one score has no gradient, so dK is 0
+        # and both sides hold only the float32 rounding of dP - di.
+        dv_max = float(dv.float().abs().max())
+        assert float(dk.float().abs().max()) <= 1e-4 * dv_max
+        assert float(dk_ref.float().abs().max()) <= 1e-4 * dv_max
+    else:
+        assert chip_smoke.slice_rel_err(dk, dk_ref) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [16, 80, 192])
+def test_dkv_kernel_through_the_head_dim_pad(card, D, dtype):
+    q, k, v, do = _bwd_inputs(card, (1, 1000, 3, D), dtype, seed=D)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    assert chip_smoke.grads_rel_err(got, ref) <= chip_smoke.TOL_SLICE[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_dkv_kernel_in_float16(card, D, causal):
+    q, k, v, do = _bwd_inputs(card, (2, 700, 2, D), torch.float16, seed=D)
+    got, ref = _dkv_and_plain(q, k, v, do, causal)
+    assert chip_smoke.grads_rel_err(got, ref) <= \
+        chip_smoke.TOL_SLICE[torch.float16]
+
+
+def test_dkv_kernel_reads_strided_and_head_major_views_in_place(card):
+    """q and k as views of one packed (B, L, 3, H, D) projection, v and
+    dO as (B, L, H, D) views of (B, H, L, D) tensors: each gets its own
+    tensor map in its own strides."""
+    qkv = torch.randn((2, 300, 3, 4, 128), device=card).to(torch.bfloat16)
+    q, k, _ = qkv.unbind(2)
+    v, do = (t.transpose(1, 2) for t in
+             _qkv(card, (2, 4, 300, 128), torch.bfloat16, seed=7)[:2])
+    assert not q.is_contiguous() and v.stride(2) > v.stride(1)
+    got, ref = _dkv_and_plain(q, k, v, do, True)
+    assert chip_smoke.grads_rel_err(got, ref) <= \
+        chip_smoke.TOL_SLICE[torch.bfloat16]
+
+
+def test_dkv_tensor_map_failure_raises_before_any_output(card):
+    """A view the kernels read but TMA cannot map (a batch stride of
+    2^40 elements, past TMA's 2^40-byte limit, on a batch of one): the
+    dK/dV launch reports the failed encode and no kernel runs."""
+    q, k, v, do = _bwd_inputs(card, (1, 128, 2, 64), torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    far = do.as_strided(do.shape, (2 ** 40, *do.stride()[1:]))
+    assert torch.equal(far, do)
+    before = (fa.launches_dkv, fa.launches_dq)
+    with pytest.raises(RuntimeError, match=r"hvd_flash_attention_bwd_dkv: "
+                                           r"tensor-map encode failed with "
+                                           r"CUresult \d+ \(strides .*"
+                                           r"1099511627776"):
+        fa.flash_attention_bwd(q, k, v, o, lse, far, True)
+    assert (fa.launches_dkv, fa.launches_dq) == before
+
+
+def test_dkv_kernel_builds_with_no_spills(card, tmp_path):
+    """ptxas's report for every dK/dV instantiation: 12 (bf16, f16 x
+    D = 64, 128, 256 x causal or not), none of them a ragged variant,
+    and no spills at D = 64 and 128."""
+    from horovod_tpu_torch.ops import _cuda_build as cb
+    out = subprocess.run(
+        [cb._nvcc(), "-Xptxas=-v", *cb.NVCC_FLAGS, "-o",
+         str(tmp_path / "bwd.so"), cb.source_path("flash_attention_bwd")],
+        capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    dkv = [r for r in cb.ptxas_resources(out.stdout + out.stderr)
+           if "flash_bwd_dkv_wgmma" in r["kernel"]]
+    assert len(dkv) == 12, [r["kernel"] for r in dkv]
+    for r in dkv:
+        if "256" not in r["kernel"]:
+            assert (r["spill_stores"], r["spill_loads"]) == (0, 0), r
 
 
 def _small_cfg(**kw):

@@ -111,7 +111,8 @@ def test_slice_check_admits_bf16_backward_rounding(causal):
 def test_slice_check_rejects_planted_backward_faults():
     args, ref = _bwd_case(True, seed=3)
     faults = chip_smoke.planted_backward_faults(*args, True)
-    assert set(faults) == {"no_di", "no_causal_mask", "dk_unscaled"}
+    assert set(faults) == {"no_di", "no_causal_mask", "dk_unscaled",
+                           "ring_first_tile"}
     for name, bad in faults.items():
         assert all(b.shape == r.shape and b.dtype == r.dtype
                    for b, r in zip(bad, ref))
