@@ -129,6 +129,7 @@ struct DkvTiles {
   // its accumulator with no spills (see the header).
   static constexpr int kBlockM = D == 256 ? 32 : D == 128 ? 64 : 128;
   static constexpr int kStages = 3;
+  static constexpr int kSlots = 2;   // P^T slots
   static constexpr int kPanels = D / kPanelCols;
   static constexpr int kKVPanel = kBlockN * kRowBytes;  // bytes
   static constexpr int kQPanel = kBlockM * kRowBytes;
@@ -137,12 +138,12 @@ struct DkvTiles {
   static constexpr int kRowBytesF32 = kBlockM * 4;      // one lse or di tile
   static constexpr int kStageBytes = 2 * kQBytes + 2 * kRowBytesF32;
   static constexpr int kSlotBytes = kBlockN * kBlockM * 4;  // P^T, f32
-  // K, V; Q and dO of every stage; lse and di of every stage; two slots.
+  // K, V; Q and dO of every stage; lse and di of every stage; the slots.
   static constexpr int kTileBytes =
-      2 * kKVBytes + kStages * kStageBytes + 2 * kSlotBytes;
+      2 * kKVBytes + kStages * kStageBytes + kSlots * kSlotBytes;
   // Barriers after the tiles: K/V; per stage full, empty; per slot
   // full, empty. 1024 bytes of slack to align the base.
-  static constexpr int kBarriers = 1 + 2 * kStages + 4;
+  static constexpr int kBarriers = 1 + 2 * (kStages + kSlots);
   static constexpr int kSmemBytes = kTileBytes + 8 * kBarriers + 1024;
   static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
 };
@@ -214,13 +215,13 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const uint32_t lse_s = do_s + kStages * C::kQBytes;  // + stage * rows
   const uint32_t di_s = lse_s + kStages * C::kRowBytesF32;
   const uint32_t slot_s = di_s + kStages * C::kRowBytesF32;
-  const uint32_t bars = slot_s + 2 * C::kSlotBytes;
+  const uint32_t bars = slot_s + C::kSlots * C::kSlotBytes;
   const uint32_t full_kv = bars;
   auto full = [&](int s) { return bars + 8u * (1 + s); };
   auto empty = [&](int s) { return bars + 8u * (1 + kStages + s); };
   auto slot_full = [&](int i) { return bars + 8u * (1 + 2 * kStages + i); };
   auto slot_empty = [&](int i) {
-    return bars + 8u * (3 + 2 * kStages + i);
+    return bars + 8u * (1 + 2 * kStages + C::kSlots + i);
   };
   auto at = [&](uint32_t a) { return smem + (a - base); };
 
@@ -240,7 +241,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       mbar_init(full(s), 1 + 32);  // the TMA leader, then warp 0's rows
       mbar_init(empty(s), 2 * kWgThreads);
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < C::kSlots; ++i) {
       mbar_init(slot_full(i), kWgThreads);
       mbar_init(slot_empty(i), kWgThreads);
     }
@@ -336,8 +337,10 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     const int q0 = (first + j) * kBM;
     // P^T's slot for this tile, in float4s: 16 bytes of thread tid at
     // [n * 128 + tid], the order of the scores accumulator.
+    const int b_slot = j % C::kSlots;
+    const int use = j / C::kSlots;  // this slot's use number
     float4* const slot = reinterpret_cast<float4*>(
-        at(slot_s + (j & 1) * C::kSlotBytes));
+        at(slot_s + b_slot * C::kSlotBytes));
     if (c == 0) {
       // P^T = exp2(scale_log2 S^T - lse log2e), zero above the diagonal
       // and for queries at or past L.
@@ -361,20 +364,20 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
         }
       }
       // Hand P^T to warpgroup 1 once it has read this slot's last use.
-      if (j >= 2) mbar_wait(slot_empty(j & 1), ((j >> 1) - 1) & 1);
+      if (use > 0) mbar_wait(slot_empty(b_slot), (use - 1) & 1);
 #pragma unroll
       for (int n = 0; n < kBM / 8; ++n)
         slot[n * kWgThreads + tid] =
             make_float4(sc[4 * n], sc[4 * n + 1], sc[4 * n + 2],
                         sc[4 * n + 3]);
-      mbar_arrive(slot_full(j & 1));
+      mbar_arrive(slot_full(b_slot));
     } else {
       // dS^T = P^T (dP^T - di), P^T from warpgroup 0's slot; zero for
       // queries at or past L.
       const float* di_t = reinterpret_cast<const float*>(
           at(di_s + s * C::kRowBytesF32));
       const bool ragged = q0 + kBM > L;
-      mbar_wait(slot_full(j & 1), (j >> 1) & 1);
+      mbar_wait(slot_full(b_slot), use & 1);
 #pragma unroll
       for (int n = 0; n < kBM / 8; ++n) {
         const float4 p = slot[n * kWgThreads + tid];
@@ -390,7 +393,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
             if (q0 + 8 * n + 2 * t + (i & 1) >= L) sc[4 * n + i] = 0.f;
         }
       }
-      mbar_arrive(slot_empty(j & 1));
+      mbar_arrive(slot_empty(b_slot));
     }
     // The gradient product of tile j - 1 has retired (nothing is in
     // flight at j = 0): release its stage and take the A operand's

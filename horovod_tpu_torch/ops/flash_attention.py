@@ -309,8 +309,7 @@ def backward_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     D = q.shape[-1]
-    if not lse.is_contiguous() or lse.data_ptr() % 16:
-        lse = lse.clone(memory_format=torch.contiguous_format)  # TMA reads it
+    lse = lse.contiguous()
     di = backward_di(o, do)           # o itself is not read by the kernels
     q, k, v, do = (pad_head_dim(t, kernel_head_dim(D))
                    for t in (q, k, v, do))
@@ -326,7 +325,7 @@ def _bwd_call(entry: str, q, k, v, do, lse, di, outs, causal: bool,
               scale: float) -> None:
     """Launch one backward kernel on q's device and current stream.
     The caller has checked shapes, types and strides (lse and di are
-    contiguous, 16-byte aligned (B, H, L) float32)."""
+    contiguous (B, H, L) float32)."""
     B, L, H, D = q.shape
     fn = getattr(load_library("flash_attention_bwd"), entry)
     with torch.cuda.device(q.device):
