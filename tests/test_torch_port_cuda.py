@@ -1,7 +1,8 @@
 """horovod_tpu_torch's CUDA kernels on the card: the flash-attention
 forward and its dK/dV and dQ backward kernels against their plain
 versions (ragged lengths, float16 and head dims the wrapper pads
-included), the forward's bitwise repeatability, the Adasum kernels K1
+included), the dK/dV kernel's failed tensor-map encode and ptxas's
+spill report, the forward's bitwise repeatability, the Adasum kernels K1
 and K2 against theirs, their launch counters, attention() on CUDA
 tensors, the tied LM head's mixed product against the float32 one, and
 the serving (both ladders), training and two-rank gloo Adasum paths
