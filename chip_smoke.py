@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    nvcc builds the flash-attention forward and backward libraries and
    the Adasum pair-combine library, one nvcc per source, started
    together; one line per kernel instantiation with ptxas's registers,
-   static shared memory and spill bytes (and the forward's and the
-   dK/dV kernel's dynamic shared memory per head dim).
+   static shared memory and spill bytes (and the forward's, the dK/dV
+   kernel's and the dQ kernel's dynamic shared memory per head dim).
 2. Forward kernel vs plain: the kernel against its plain PyTorch version
    at the served shapes (B in 1, 2, 4; L 2048; 32 heads; head dim 128;
    bf16; causal), non-causal, head dim 64, ragged lengths (L = 16, 1000,
@@ -1255,7 +1255,9 @@ def main():
     bwd_lib = _cuda_build.load_library("flash_attention_bwd")
     smem = {"flash_attention_fwd": fwd_lib.hvd_flash_attention_fwd_smem_bytes,
             "flash_attention_bwd_dkv":
-                bwd_lib.hvd_flash_attention_bwd_dkv_smem_bytes}
+                bwd_lib.hvd_flash_attention_bwd_dkv_smem_bytes,
+            "flash_attention_bwd_dq":
+                bwd_lib.hvd_flash_attention_bwd_dq_smem_bytes}
     log("phase 1: dynamic shared memory bytes " + json.dumps(
         {name: {D: fn(D) for D in fa.KERNEL_HEAD_DIMS}
          for name, fn in smem.items()}))

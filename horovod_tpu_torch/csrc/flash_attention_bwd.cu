@@ -83,13 +83,53 @@
 // D = 64: 16 + 3 x 33 + 64 KB; D = 128: 32 + 3 x 32.5 + 32 KB;
 // D = 256: 64 + 3 x 32.25 + 16 KB.
 //
-// The dQ kernel (flash_bwd_dq_mma) runs every product on the tensor cores
-// with mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate): S = Q K^T, dP
-// = dO V^T and dQ += dS K, P and dS in registers (the accumulator layout
-// of S is the A operand of dS K), K read as 16-bit pairs from padded
-// shared memory loaded by cp.async. A ragged L runs a second, guarded
-// instantiation (kRagged), launched only when L % 64 != 0. It does not
-// yet use wgmma or TMA.
+// The dQ kernel (flash_bwd_dq_wgmma) and what its design does about that:
+// - A CTA owns kBlockM query rows of one (b, h) and walks the key tiles of
+//   64 keys (up to the diagonal when causal, the longest rows first).
+//   Warpgroup 0 is the producer; warpgroups 1.. are consumers of 64 rows
+//   each: two at D = 64 and 128 (kBlockM = 128), one at D = 256
+//   (kBlockM = 64), where two would need 256 KB of shared memory.
+// - Q and dO are loaded once by TMA. K and V go through a ring of
+//   kStages stages, a "full" and an "empty" barrier for each of K and V:
+//   S is issued once K has landed, before V has, and V is released once
+//   dP = dO V^T has retired, K once dQ += dS K has. (One barrier pair
+//   for both was 2-4 % slower at the causal training shape on an H100,
+//   and 8 % faster non-causal.)
+//   lse and di are constant over the CTA's rows: the producer warp's
+//   lanes copy them into shared memory with plain loads (lse times
+//   log2 e; zero past L) and arrive on Q's barrier, never through rank-1
+//   TMA boxes, whose starts are not 16-byte aligned at a ragged L.
+// - Products (wgmma, f32 accumulate): S = Q K^T and dP = dO V^T with both
+//   operands K-major (issue_kmajor); dQ += dS K with dS, rounded to 16
+//   bits in pairs, as the register A operand and K read MN-major from the
+//   same swizzled tile the scores product read K-major (issue_rs). dS =
+//   P (dP - di) is formed from float32 P in place over dP, so the scores
+//   tile and the dP tile are the only two live.
+// - Schedule: a consumer runs each tile's products in series (S and dP
+//   together, dS, then dS K); the two consumers' tiles interleave on the
+//   tensor cores. Issuing the next tile's S and dP beside this tile's
+//   dS K, as dK/dV does, needs 144 live floats a thread at D = 128:
+//   ptxas spilled and serialised the products (C7512) there, and on an
+//   H100 it was slower at D = 128 and 256 and 2 % faster at D = 64
+//   (PERF.md), so there is one schedule. D = 64 and 128 run three
+//   stages; D = 256 fits two.
+// - Causal and ragged: TMA zero-fills rows past L; rows past L compute on
+//   zeros (lse = di = 0) and are not stored. One uniform branch per tile
+//   masks P above the diagonal and at keys past L, only on tiles that
+//   cross either. A consumer stops at its own last visible key tile, so
+//   the first consumer skips the CTA's last tile when causal. No second
+//   instantiation.
+// - Epilogue: dQ times scale, rounded to the input's type, staged in the
+//   warpgroup's own rows of the Q tile (no other warpgroup reads them)
+//   and written with 16-byte stores; rows past L are not stored. No
+//   atomics: two launches on the same inputs are bitwise equal.
+// - Registers, per consumer thread: the 64 x D accumulator (D / 2
+//   floats), S and dP (32 floats each at 64 keys; the packed dS reuses
+//   S's): 96 at D = 64 and 128 at D = 128, under the 168 that three
+//   warpgroups get at launch; 192 at D = 256, under the 255 of two.
+// Shared memory (Q + dO + kStages x (K + V) + lse + di): D = 64: 32 +
+// 3 x 16 + 1 KB; D = 128: 64 + 3 x 32 + 1 KB; D = 256: 64 + 2 x 64 +
+// 0.5 KB.
 //
 // bf16 is the trained type; f16 runs the same kernels with the f16 form
 // of the product. The float32 entry points are plain scalar kernels
@@ -107,9 +147,7 @@ using namespace hvd_hopper;
 
 namespace {
 
-constexpr int kBlockM = 64;  // queries per tile of the dQ kernel
-constexpr int kBlockN = 64;  // keys per tile
-static_assert(kBlockM == kBlockN, "the causal diagonal is one tile");
+constexpr int kBlockN = 64;  // keys per tile of the 16-bit kernels
 
 struct Strides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, db, dl, dh;  // d*: dO
@@ -149,17 +187,32 @@ struct DkvTiles {
 };
 
 // Named barriers (0 is __syncthreads): each consumer's epilogue.
-constexpr int kEpilogueBarrier = 1;  // + consumer (0: dV, 1: dK)
+constexpr int kEpilogueBarrier = 1;  // + consumer (dK/dV: 0 dV, 1 dK)
 
-// A 64 x D accumulator, scaled and rounded to T, into the swizzled
-// panels at `tile` (64 rows of 128 bytes a panel), then out to rows
-// k0.. of the contiguous (B, L, H, D) output, rows past L left out.
-template <typename T, int D>
+// A scores-shaped accumulator (64 rows x kBlockN keys), rounded to T in
+// pairs: its layout for keys 16kk..16kk+15 is the register A operand of
+// a product that reduces over the keys.
+template <typename T, int kBlockN>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[kBlockN / 16][4],
+                                       const float (&x)[kBlockN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    pa[kk][0] = pack_float2<T>(x[8 * kk], x[8 * kk + 1]);
+    pa[kk][1] = pack_float2<T>(x[8 * kk + 2], x[8 * kk + 3]);
+    pa[kk][2] = pack_float2<T>(x[8 * kk + 4], x[8 * kk + 5]);
+    pa[kk][3] = pack_float2<T>(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// A 64 x D accumulator, scaled and rounded to T, into the warpgroup's 64
+// rows of the swizzled panels at `tile` (panels kPanelBytes apart), then
+// out to rows row0.. of the contiguous (B, L, H, D) output, rows past L
+// left out.
+template <typename T, int D, int kPanelBytes>
 __device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
                                            float scale, unsigned char* tile,
-                                           T* out, int consumer, int k0,
+                                           T* out, int consumer, int row0,
                                            int L, int H, int h, int b) {
-  constexpr int kPanelBytes = kBlockN * kRowBytes;
   const int tid = threadIdx.x % kWgThreads;
   const int warp = tid / 32;
   const int g = (tid % 32) >> 2;
@@ -177,10 +230,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
   }
   named_barrier_sync(kEpilogueBarrier + consumer, kWgThreads);
   constexpr int kChunks = D / 8;  // 16-byte chunks of an output row
-  for (int i = tid; i < kBlockN * kChunks; i += kWgThreads) {
+  for (int i = tid; i < 64 * kChunks; i += kWgThreads) {
     const int r = i / kChunks;
     const int ch = i % kChunks;
-    const int row = k0 + r;
+    const int row = row0 + r;
     if (row >= L) break;  // rows grow with i
     const uint4 val = *reinterpret_cast<const uint4*>(
         tile + (ch / 8) * kPanelBytes + r * kRowBytes +
@@ -401,13 +454,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     wgmma_wait<0>();
     reg_fence(acc);
     if (j > 0) mbar_arrive(empty((j - 1) % kStages));
-#pragma unroll
-    for (int kk = 0; kk < kBM / 16; ++kk) {
-      pa[kk][0] = pack_float2<T>(sc[8 * kk], sc[8 * kk + 1]);
-      pa[kk][1] = pack_float2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_float2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_float2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
+    pack_a<T, kBM>(pa, sc);
     if (j + 1 == n_tiles) break;
     // The scores product of tile j + 1, then the gradient product of
     // tile j; tile j + 1's scores are worked on while the latter runs.
@@ -429,172 +476,241 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   // dV into K's tile and dK into V's: each consumer is the only reader
   // of the tile it overwrites, and its last product has retired.
   if (c == 0)
-    store_tile<T, D>(acc, 1.f, at(k_s), dv, 0, k0, L, H, h, b);
+    store_tile<T, D, C::kKVPanel>(acc, 1.f, at(k_s), dv, 0, k0, L, H, h, b);
   else
-    store_tile<T, D>(acc, scale, at(v_s), dk, 1, k0, L, H, h, b);
+    store_tile<T, D, C::kKVPanel>(acc, scale, at(v_s), dk, 1, k0, L, H, h,
+                                  b);
 }
 
 // ---------------------------------------------------------------------------
-// dQ, bf16 or f16 (T): one CTA per (query tile, h, b), 16 queries per warp,
-// walking the key tiles up to the diagonal.
+// dQ, bf16 or f16 (T): one CTA per (query tile, h, b), see the header.
 
-constexpr int kDqThreads = 128;
+template <int D>
+struct DqTiles {
+  // Consumer warpgroups of 64 query rows: two, but one at D = 256, where
+  // two would need 256 KB of shared memory.
+  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kBlockM = 64 * kConsumers;  // query rows per CTA
+  static constexpr int kThreads = kWgThreads * (1 + kConsumers);
+  // setmaxnreg budgets: 24 + 2 x 240 of three warpgroups' 3 x 168 at
+  // launch; 56 + 256 of two warpgroups' 2 x 255.
+  static constexpr int kProducerRegs = kConsumers == 2 ? 24 : 56;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 256;
+  // Three stages where shared memory allows; two at D = 256.
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kQPanel = kBlockM * kRowBytes;   // bytes
+  static constexpr int kKVPanel = kBlockN * kRowBytes;
+  static constexpr int kQBytes = kQPanel * kPanels;     // the Q or dO tile
+  static constexpr int kKVBytes = kKVPanel * kPanels;   // one K or V tile
+  static constexpr int kRowBytesF32 = kBlockM * 4;      // lse or di
+  // Q, dO; K and V of every stage; lse and di.
+  static constexpr int kTileBytes =
+      2 * kQBytes + 2 * kStages * kKVBytes + 2 * kRowBytesF32;
+  // Barriers after the tiles: Q; per stage K full, V full, K empty, V
+  // empty. 1024 bytes of slack to align the base.
+  static constexpr int kBarriers = 1 + 4 * kStages;
+  static constexpr int kSmemBytes = kTileBytes + 8 * kBarriers + 1024;
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
+};
 
-template <typename T, int D, bool kCausal, bool kRagged>
-__global__ void __launch_bounds__(kDqThreads)
-    flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dq, int L,
-                     int H, Strides st, float scale, float scale_log2) {
-  constexpr int kS = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);
-  T* do_s = q_s + kBlockM * kS;
-  T* k_s = do_s + kBlockM * kS;
-  T* v_s = k_s + kBlockN * kS;
+// dS = P (dP - di) in place over dP, with P = exp2(scale_log2 S - lse)
+// (lse in the log2 domain) from S, zero above the diagonal and at keys
+// past L when `masked`. row0 and row0 + 8 are this thread's query rows.
+template <int kBlockN, bool kCausal>
+__device__ __forceinline__ void form_ds(const float (&sc)[kBlockN / 2],
+                                        float (&dp)[kBlockN / 2],
+                                        bool masked, int k0, int row0, int t,
+                                        int L, float scale_log2, float lse0,
+                                        float lse1, float di0, float di1) {
+#pragma unroll
+  for (int n = 0; n < kBlockN / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool hi = i >= 2;
+      float p = exp2f(fmaf(sc[4 * n + i], scale_log2, -(hi ? lse1 : lse0)));
+      if (masked) {
+        const int key = k0 + 8 * n + 2 * t + (i & 1);
+        if ((kCausal && key > row0 + (hi ? 8 : 0)) || key >= L) p = 0.f;
+      }
+      dp[4 * n + i] = p * (dp[4 * n + i] - (hi ? di1 : di0));
+    }
+  }
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  // Longest causal tiles first: the last query tile has the most keys.
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di, T* __restrict__ dq,
+                       int L, int H, float scale, float scale_log2) {
+  using C = DqTiles<D>;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle's alignment
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t do_s = q_s + C::kQBytes;
+  const uint32_t k_s = do_s + C::kQBytes;             // + stage * kKVBytes
+  const uint32_t v_s = k_s + kStages * C::kKVBytes;   // + stage * kKVBytes
+  const uint32_t lse_s = v_s + kStages * C::kKVBytes;
+  const uint32_t di_s = lse_s + C::kRowBytesF32;
+  const uint32_t bars = di_s + C::kRowBytesF32;
+  const uint32_t full_q = bars;
+  auto full_k = [&](int s) { return bars + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
+  auto at = [&](uint32_t a) { return smem + (a - base); };
+
+  // Longest causal rows first: the last query tile has the most keys.
   const int q_tile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int q0 = q_tile * kBlockM;
-  const int wrow = warp * 16;
+  const int q0 = q_tile * C::kBlockM;
+  // The key tiles that rows below row_end see (>= 1: q0 < L).
+  auto key_tiles = [&](int row_end) {
+    return ((kCausal ? min(row_end, L) : L) + kBlockN - 1) / kBlockN;
+  };
+  // Warp-uniform as far as the compiler can tell, so that each role's
+  // register budget (setmaxnreg) holds for its whole branch.
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / kWgThreads, 0);
 
-  load_tile<D, kDqThreads, kRagged>(
-      q_s, q + b * st.qb + q0 * st.ql + h * st.qh, st.ql, kBlockM, L - q0);
-  load_tile<D, kDqThreads, kRagged>(
-      do_s, dout + b * st.db + q0 * st.dl + h * st.dh, st.dl, kBlockM,
-      L - q0);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1 + 32);  // the TMA leader, then warp 0's rows
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), C::kConsumers * kWgThreads);
+      mbar_init(empty_v(s), C::kConsumers * kWgThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  const int r0 = q0 + wrow + g;
-  const int r1 = r0 + 8;
-  const int64_t bh = (static_cast<int64_t>(b) * H + h) * L;
-  // Rows past L compute on zeros and are not stored.
-  const bool in0 = !kRagged || r0 < L;
-  const bool in1 = !kRagged || r1 < L;
-  const float lse0 = in0 ? lse[bh + r0] * kLog2e : 0.f;
-  const float lse1 = in1 ? lse[bh + r1] * kLog2e : 0.f;
-  const float di0 = in0 ? di[bh + r0] : 0.f;
-  const float di1 = in1 ? di[bh + r1] : 0.f;
-  const T* kg = k + b * st.kb + h * st.kh;
-  const T* vg = v + b * st.vb + h * st.vh;
+  if (wg == 0) {
+    // Producer: warp 0 keeps the ring full, one elected thread issuing
+    // every load. A stage is free once every consumer released its last
+    // use; a fresh barrier passes the wait on the opposite parity at
+    // once. The last consumer sees every tile the CTA loads.
+    setmaxnreg_dec<C::kProducerRegs>();
+    const int warp = __shfl_sync(0xffffffff, (threadIdx.x / 32) % 4, 0);
+    if (warp == 0) {
+      const bool leader = elect_one();
+      if (leader) {
+        tma_prefetch_map(&tq);
+        tma_prefetch_map(&tk);
+        tma_prefetch_map(&tv);
+        tma_prefetch_map(&tdo);
+        mbar_arrive_expect_tx(full_q, 2 * C::kQBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load_4d(q_s + p * C::kQPanel, &tq, full_q, p * kPanelCols, h,
+                      q0, b);
+          tma_load_4d(do_s + p * C::kQPanel, &tdo, full_q, p * kPanelCols,
+                      h, q0, b);
+        }
+      }
+      // The tile's lse (log2 domain) and di rows, zero past L, copied by
+      // the warp's lanes; each arrives on Q's barrier.
+      const int64_t row0 = (static_cast<int64_t>(b) * H + h) * L + q0;
+      float* lse_t = reinterpret_cast<float*>(at(lse_s));
+      float* di_t = reinterpret_cast<float*>(at(di_s));
+      for (int r = threadIdx.x % 32; r < C::kBlockM; r += 32) {
+        const bool in = q0 + r < L;
+        lse_t[r] = in ? lse[row0 + r] * kLog2e : 0.f;
+        di_t[r] = in ? di[row0 + r] : 0.f;
+      }
+      mbar_arrive(full_q);
+      const int n_tiles = key_tiles(q0 + C::kBlockM);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t parity = ((j / kStages) & 1) ^ 1;
+        const int k0 = j * kBlockN;
+        mbar_wait(empty_k(s), parity);
+        if (leader) {
+          mbar_arrive_expect_tx(full_k(s), C::kKVBytes);
+          for (int p = 0; p < C::kPanels; ++p)
+            tma_load_4d(k_s + s * C::kKVBytes + p * C::kKVPanel, &tk,
+                        full_k(s), p * kPanelCols, h, k0, b);
+        }
+        mbar_wait(empty_v(s), parity);
+        if (leader) {
+          mbar_arrive_expect_tx(full_v(s), C::kKVBytes);
+          for (int p = 0; p < C::kPanels; ++p)
+            tma_load_4d(v_s + s * C::kKVBytes + p * C::kKVPanel, &tv,
+                        full_v(s), p * kPanelCols, h, k0, b);
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
 
-  float acc[D / 8][4];
+  // Consumers: warpgroup c takes query rows 64c..64c+63 of the tile.
+  setmaxnreg_inc<C::kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;  // fragment row group
+  const int t = tid & 3;          // thread in group
+  const int wrow0 = q0 + 64 * c;  // the warpgroup's first row
+  const int r0 = 64 * c + 16 * warp + g;  // this thread's rows in the
+  const int row0 = q0 + r0;               // tile: r0 and r0 + 8
+  const int n_tiles = key_tiles(wrow0 + 64);
+
+  float acc[D / 2];  // dQ
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[kBlockN / 2];         // S
+  float dp[kBlockN / 2];         // dP, then dS
+  uint32_t pa[kBlockN / 16][4];  // dS, the A operand of dS K
+  const uint32_t qa = q_s + 64 * c * kRowBytes;   // this warpgroup's rows
+  const uint32_t doa = do_s + 64 * c * kRowBytes;
+  // Uniform across the warpgroup: does the tile at k0 cross the diagonal
+  // or L?
+  auto masked = [&](int k0) {
+    return (kCausal && k0 + kBlockN - 1 > wrow0) || k0 + kBlockN > L;
+  };
 
-  const int n_tiles = kCausal ? q_tile + 1 : (L + kBlockN - 1) / kBlockN;
+  mbar_wait(full_q, 0);
+  const float* lse_t = reinterpret_cast<const float*>(at(lse_s));
+  const float* di_t = reinterpret_cast<const float*>(at(di_s));
+  const float lse0 = lse_t[r0], lse1 = lse_t[r0 + 8];
+  const float di0 = di_t[r0], di1 = di_t[r0 + 8];
+
+  // Each key tile in turn: S and dP, dS over dP, then dQ += dS K; the
+  // two consumers' products interleave on the tensor cores.
   for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
     const int k0 = j * kBlockN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, kDqThreads, kRagged>(
-        k_s, kg + static_cast<int64_t>(k0) * st.kl, st.kl, kBlockN, L - k0);
-    cp_async_commit();
-    load_tile<D, kDqThreads, kRagged>(
-        v_s, vg + static_cast<int64_t>(k0) * st.vl, st.vl, kBlockN, L - k0);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and K have landed; V may be in flight
-    __syncthreads();
-
-    // S = Q K^T: the warp's 16 queries x 64 keys, then P.
-    float p[kBlockN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n)
-      p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const T* qa = q_s + (wrow + g) * kS + kd * 16 + 2 * t;
-      const uint32_t a0 = ld_pair(qa);
-      const uint32_t a1 = ld_pair(qa + 8 * kS);
-      const uint32_t a2 = ld_pair(qa + 8);
-      const uint32_t a3 = ld_pair(qa + 8 * kS + 8);
-#pragma unroll
-      for (int n = 0; n < kBlockN / 8; ++n) {
-        const T* kb = k_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816<T>(p[n], a0, a1, a2, a3, ld_pair(kb), ld_pair(kb + 8));
-      }
-    }
-    const bool diag = kCausal && j == q_tile;
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n * 8 + 2 * t + (e & 1);
-        const int row = wrow + g + (e >= 2 ? 8 : 0);
-        const float x =
-            exp2f(fmaf(p[n][e], scale_log2, e >= 2 ? -lse1 : -lse0));
-        p[n][e] = ((diag && key > row) || (kRagged && k0 + key >= L))
-                      ? 0.f : x;
-      }
-    }
-
-    cp_async_wait<0>();
-    __syncthreads();  // V visible to every warp
-
-    // dP = dO V^T, then dS = P (dP - di[row]) in place.
-    float ds[kBlockN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n)
-      ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const T* oa = do_s + (wrow + g) * kS + kd * 16 + 2 * t;
-      const uint32_t a0 = ld_pair(oa);
-      const uint32_t a1 = ld_pair(oa + 8 * kS);
-      const uint32_t a2 = ld_pair(oa + 8);
-      const uint32_t a3 = ld_pair(oa + 8 * kS + 8);
-#pragma unroll
-      for (int n = 0; n < kBlockN / 8; ++n) {
-        const T* vb = v_s + (n * 8 + g) * kS + kd * 16 + 2 * t;
-        mma_16816<T>(ds[n], a0, a1, a2, a3, ld_pair(vb), ld_pair(vb + 8));
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-      ds[n][0] = p[n][0] * (ds[n][0] - di0);
-      ds[n][1] = p[n][1] * (ds[n][1] - di0);
-      ds[n][2] = p[n][2] * (ds[n][2] - di1);
-      ds[n][3] = p[n][3] * (ds[n][3] - di1);
-    }
-
-    // dQ += dS K (scaled once at the end).
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a0 = pack_float2<T>(ds[2 * kk][0], ds[2 * kk][1]);
-      const uint32_t a1 = pack_float2<T>(ds[2 * kk][2], ds[2 * kk][3]);
-      const uint32_t a2 = pack_float2<T>(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-      const uint32_t a3 = pack_float2<T>(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
-      const T* kb = k_s + (kk * 16 + 2 * t) * kS + g;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const T* x = kb + dt * 8;
-        mma_16816<T>(acc[dt], a0, a1, a2, a3, pack_pair(x[0], x[kS]),
-                     pack_pair(x[8 * kS], x[9 * kS]));
-      }
-    }
+    mbar_wait(full_k(s), parity);
+    issue_kmajor<T, D, kBlockN, C::kQPanel, C::kKVPanel>(
+        sc, qa, k_s + s * C::kKVBytes);
+    mbar_wait(full_v(s), parity);
+    issue_kmajor<T, D, kBlockN, C::kQPanel, C::kKVPanel>(
+        dp, doa, v_s + s * C::kKVBytes);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    mbar_arrive(empty_v(s));
+    form_ds<kBlockN, kCausal>(sc, dp, masked(k0), k0, row0, t, L,
+                              scale_log2, lse0, lse1, di0, di1);
+    pack_a<T, kBlockN>(pa, dp);
+    issue_rs<T, kBlockN, D, C::kKVPanel>(acc, pa, k_s + s * C::kKVBytes);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(empty_k(s));
   }
 
-  T* o0 = dq + (static_cast<int64_t>(b) * L + r0) * H * D +
-          static_cast<int64_t>(h) * D;
-  T* o1 = dq + (static_cast<int64_t>(b) * L + r1) * H * D +
-          static_cast<int64_t>(h) * D;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(o0 + c) =
-          pack_float2<T>(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(o1 + c) =
-          pack_float2<T>(acc[dt][2] * scale, acc[dt][3] * scale);
-  }
+  // dQ into this warpgroup's own rows of the Q tile: its last product
+  // has retired and no other warpgroup reads them.
+  store_tile<T, D, C::kQPanel>(acc, scale, at(qa), dq, c, wrow0, L, H, h,
+                               b);
 }
 
 // ---------------------------------------------------------------------------
@@ -604,7 +720,7 @@ __global__ void __launch_bounds__(kDqThreads)
 // zeros and stores nothing).
 
 constexpr int kRowTile = 16;
-constexpr int kF32Threads = 64;  // rows per CTA, = kBlockM
+constexpr int kF32Threads = 64;  // rows per CTA
 
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kF32Threads)
@@ -740,55 +856,69 @@ struct Args {
   cudaStream_t stream;
 };
 
-int tiles(int L) { return (L + kBlockN - 1) / kBlockN; }
+// CTAs along L for tiles of `rows` rows.
+int tiles(int L, int rows) { return (L + rows - 1) / rows; }
+
+// The tensor maps of q, k, v and dO (in that order) of a 16-bit kernel
+// that reads q and dO in boxes of q_rows rows and k, v in boxes of
+// kBlockN: 0, or kTensorMapError + the CUresult of the failed encode.
+template <typename T, int D>
+int encode_maps(const Args& a, int q_rows, CUtensorMap (&m)[4]) {
+  constexpr bool kF16 = !kIsBf16<T>;
+  const Strides& st = a.st;
+  int err = encode(&m[0], a.q, kF16, a.B, a.L, a.H, D, st.qb, st.ql, st.qh,
+                   q_rows);
+  if (err == 0)
+    err = encode(&m[1], a.k, kF16, a.B, a.L, a.H, D, st.kb, st.kl, st.kh,
+                 kBlockN);
+  if (err == 0)
+    err = encode(&m[2], a.v, kF16, a.B, a.L, a.H, D, st.vb, st.vl, st.vh,
+                 kBlockN);
+  if (err == 0)
+    err = encode(&m[3], a.dout, kF16, a.B, a.L, a.H, D, st.db, st.dl, st.dh,
+                 q_rows);
+  return err;
+}
 
 template <typename T, int D, bool kCausal>
 int dkv_wgmma(const Args& a) {
   using C = DkvTiles<D>;
-  constexpr bool kF16 = !kIsBf16<T>;
-  const Strides& st = a.st;
-  CUtensorMap tq, tk, tv, tdo;
-  int err = encode(&tq, a.q, kF16, a.B, a.L, a.H, D, st.qb, st.ql, st.qh,
-                   C::kBlockM);
-  if (err == 0)
-    err = encode(&tk, a.k, kF16, a.B, a.L, a.H, D, st.kb, st.kl, st.kh,
-                 kBlockN);
-  if (err == 0)
-    err = encode(&tv, a.v, kF16, a.B, a.L, a.H, D, st.vb, st.vl, st.vh,
-                 kBlockN);
-  if (err == 0)
-    err = encode(&tdo, a.dout, kF16, a.B, a.L, a.H, D, st.db, st.dl, st.dh,
-                 C::kBlockM);
+  CUtensorMap m[4];
+  const int err = encode_maps<T, D>(a, C::kBlockM, m);
   if (err != 0) return err;
   auto kernel = flash_bwd_dkv_wgmma<T, D, kCausal>;
   const cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  kernel<<<dim3(tiles(a.L), a.H, a.B), kDkvThreads, C::kSmemBytes,
-           a.stream>>>(tq, tk, tv, tdo, a.lse, a.di, static_cast<T*>(a.dk),
-                       static_cast<T*>(a.dv), a.L, a.H, a.scale,
-                       a.scale * kLog2e);
+  kernel<<<dim3(tiles(a.L, kBlockN), a.H, a.B), kDkvThreads, C::kSmemBytes,
+           a.stream>>>(m[0], m[1], m[2], m[3], a.lse, a.di,
+                       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.L,
+                       a.H, a.scale, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool kCausal, bool kRagged>
-int dq_mma(const Args& a) {
-  auto kernel = flash_bwd_dq_mma<T, D, kCausal, kRagged>;
-  const int smem = (2 * kBlockM + 2 * kBlockN) * (D + kPad) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(tiles(a.L), a.H, a.B), kDqThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
-      static_cast<T*>(a.dq), a.L, a.H, a.st, a.scale, a.scale * kLog2e);
+template <typename T, int D, bool kCausal>
+int dq_wgmma(const Args& a) {
+  using C = DqTiles<D>;
+  CUtensorMap m[4];
+  const int err = encode_maps<T, D>(a, C::kBlockM, m);
+  if (err != 0) return err;
+  auto kernel = flash_bwd_dq_wgmma<T, D, kCausal>;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  kernel<<<dim3(tiles(a.L, C::kBlockM), a.H, a.B), C::kThreads,
+           C::kSmemBytes, a.stream>>>(m[0], m[1], m[2], m[3], a.lse, a.di,
+                                      static_cast<T*>(a.dq), a.L, a.H,
+                                      a.scale, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kCausal>
 int dkv_f32(const Args& a) {
   flash_bwd_dkv_f32<D, kCausal>
-      <<<dim3(tiles(a.L), a.H, a.B), kF32Threads, 0, a.stream>>>(
+      <<<dim3(tiles(a.L, kF32Threads), a.H, a.B), kF32Threads, 0,
+         a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           a.lse, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
@@ -799,7 +929,8 @@ int dkv_f32(const Args& a) {
 template <int D, bool kCausal>
 int dq_f32(const Args& a) {
   flash_bwd_dq_f32<D, kCausal>
-      <<<dim3(tiles(a.L), a.H, a.B), kF32Threads, 0, a.stream>>>(
+      <<<dim3(tiles(a.L, kF32Threads), a.H, a.B), kF32Threads, 0,
+         a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           a.lse, a.di, static_cast<float*>(a.dq), a.L, a.H, a.st, a.scale);
@@ -808,35 +939,31 @@ int dq_f32(const Args& a) {
 
 typedef int (*Launcher)(const Args&);
 
-// The 16-bit kernels: dK/dV takes any L in one instantiation; dQ runs
-// its guarded instantiation only for a ragged L.
+// The 16-bit kernels take any L in one instantiation each.
 template <typename T, int D>
-Launcher pick_16(bool dkv, int causal, bool ragged) {
+Launcher pick_16(bool dkv, int causal) {
   if (dkv) return causal ? dkv_wgmma<T, D, true> : dkv_wgmma<T, D, false>;
-  if (ragged)
-    return causal ? dq_mma<T, D, true, true> : dq_mma<T, D, false, true>;
-  return causal ? dq_mma<T, D, true, false> : dq_mma<T, D, false, false>;
+  return causal ? dq_wgmma<T, D, true> : dq_wgmma<T, D, false>;
 }
 
 template <int D>
-Launcher pick(bool dkv, int dtype, int causal, bool ragged) {
+Launcher pick(bool dkv, int dtype, int causal) {
   if (dtype == 1) {
     if (dkv) return causal ? dkv_f32<D, true> : dkv_f32<D, false>;
     return causal ? dq_f32<D, true> : dq_f32<D, false>;
   }
-  return dtype == 2 ? pick_16<f16, D>(dkv, causal, ragged)
-                    : pick_16<bf16, D>(dkv, causal, ragged);
+  return dtype == 2 ? pick_16<f16, D>(dkv, causal)
+                    : pick_16<bf16, D>(dkv, causal);
 }
 
 int launch(bool dkv, int dtype, int D, int causal, const Args& a) {
   if (a.L < 1 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Launcher fn = nullptr;
-  const bool ragged = a.L % kBlockM != 0;
   switch (D) {
-    case 64: fn = pick<64>(dkv, dtype, causal, ragged); break;
-    case 128: fn = pick<128>(dkv, dtype, causal, ragged); break;
-    case 256: fn = pick<256>(dkv, dtype, causal, ragged); break;
+    case 64: fn = pick<64>(dkv, dtype, causal); break;
+    case 128: fn = pick<128>(dkv, dtype, causal); break;
+    case 256: fn = pick<256>(dkv, dtype, causal); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return fn(a);
@@ -847,9 +974,9 @@ int launch(bool dkv, int dtype, int D, int causal, const Args& a) {
 // dtype: 0 = bfloat16, 1 = float32, 2 = float16. L >= 1. Strides are in
 // elements (q, k, v, dO, each (b, l, h)); the head dim must be
 // contiguous. lse and di are (B, H, L) float32, contiguous; the outputs
-// are (B, L, H, D), contiguous. Each returns the
-// cudaError_t of its launch; the 16-bit dK/dV kernel returns
-// kTensorMapError + the CUresult of a failed tensor-map encode.
+// are (B, L, H, D), contiguous. Each returns the cudaError_t of its
+// launch, or, for a 16-bit launch, kTensorMapError + the CUresult of a
+// failed tensor-map encode.
 extern "C" int hvd_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dk, void* dv, int dtype, int B,
@@ -882,13 +1009,22 @@ extern "C" int hvd_flash_attention_bwd_dq(
   return launch(false, dtype, D, causal, a);
 }
 
-// The 16-bit dK/dV kernel's dynamic shared memory for head dim D (0 for
-// a D it is not built for); ptxas reports only static shared memory.
+// The 16-bit kernels' dynamic shared memory for head dim D (0 for a D
+// they are not built for); ptxas reports only static shared memory.
 extern "C" int hvd_flash_attention_bwd_dkv_smem_bytes(int D) {
   switch (D) {
     case 64: return DkvTiles<64>::kSmemBytes;
     case 128: return DkvTiles<128>::kSmemBytes;
     case 256: return DkvTiles<256>::kSmemBytes;
+    default: return 0;
+  }
+}
+
+extern "C" int hvd_flash_attention_bwd_dq_smem_bytes(int D) {
+  switch (D) {
+    case 64: return DqTiles<64>::kSmemBytes;
+    case 128: return DqTiles<128>::kSmemBytes;
+    case 256: return DqTiles<256>::kSmemBytes;
     default: return 0;
   }
 }

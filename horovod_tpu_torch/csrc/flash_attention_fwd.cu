@@ -5,9 +5,9 @@
 // `flash_attention_path` (l.163), i.e. the forward of
 // jax.experimental.pallas.ops.tpu.flash_attention.flash_attention
 // (`_flash_attention_kernel`). Its dK/dV and dQ backward kernels are
-// in flash_attention_bwd.cu; the mma.sync helpers they share with the
-// float32 path are in flash_common.cuh, the Hopper helpers (TMA,
-// mbarrier, wgmma) in hopper_common.cuh.
+// in flash_attention_bwd.cu; the types and roundings they share are in
+// flash_common.cuh, the Hopper helpers (TMA, mbarrier, wgmma) in
+// hopper_common.cuh.
 //
 // Function: o = softmax(scale * q k^T [+ causal mask]) v and
 // lse = logsumexp of the scaled, masked scores, per (b, h, query row).

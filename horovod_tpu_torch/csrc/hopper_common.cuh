@@ -1,9 +1,9 @@
 // Hopper building blocks of the flash-attention forward and of the dK/dV
-// backward kernel (flash_attention_fwd.cu, flash_attention_bwd.cu):
-// mbarriers, TMA tile loads and the host-side tensor-map encoder,
-// warpgroup register reallocation and the asynchronous warpgroup product
-// (wgmma) with its shared-memory descriptors. The mma.sync helpers that
-// the dQ kernel shares with the float32 path stay in flash_common.cuh.
+// and dQ backward kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu): mbarriers, TMA tile loads and the host-side
+// tensor-map encoder, warpgroup register reallocation and the
+// asynchronous warpgroup product (wgmma) with its shared-memory
+// descriptors.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a
 // tile of R rows and 64 16-bit columns (one "panel", 128 bytes a row)
@@ -480,7 +480,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 // d (m64 x N) = A B^T over a reduction of K columns, A (64 rows) and B
 // (N rows) both K-major in swizzled panels of kAPanel and kBPanel bytes
-// (S = Q K^T in the forward; S^T = K Q^T and dP^T = V dO^T in dK/dV):
+// (S = Q K^T in the forward and in dQ; S^T = K Q^T and dP^T = V dO^T in
+// dK/dV; dP = dO V^T in dQ):
 // issued and committed, not waited for.
 template <typename T, int K, int N, int kAPanel, int kBPanel>
 __device__ __forceinline__ void issue_kmajor(float (&d)[N / 2], uint32_t a,
@@ -499,7 +500,8 @@ __device__ __forceinline__ void issue_kmajor(float (&d)[N / 2], uint32_t a,
 // d (m64 x N) += A B over a reduction of K rows, A in registers (the
 // 16-bit A fragments of K / 16 slices) and B MN-major in swizzled panels
 // of kBPanel bytes (O += P V in the forward; dV += P^T dO and dK +=
-// dS^T Q in dK/dV): issued and committed, not waited for.
+// dS^T Q in dK/dV; dQ += dS K in dQ): issued and committed, not waited
+// for.
 template <typename T, int K, int N, int kBPanel>
 __device__ __forceinline__ void issue_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[K / 16][4],

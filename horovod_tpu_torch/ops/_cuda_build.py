@@ -47,8 +47,9 @@ LIBRARIES = {
         + _FLASH_TAIL,
         "hvd_flash_attention_bwd_dq": [_PTR] * 7 + [_INT] * 5 + [_LL] * 12
         + _FLASH_TAIL,
-        # D -> the 16-bit dK/dV kernel's dynamic shared memory in bytes
-        "hvd_flash_attention_bwd_dkv_smem_bytes": [_INT]},
+        # D -> the 16-bit kernels' dynamic shared memory in bytes
+        "hvd_flash_attention_bwd_dkv_smem_bytes": [_INT],
+        "hvd_flash_attention_bwd_dq_smem_bytes": [_INT]},
     "adasum_pair_combine": {
         # a, b, scratch, stats, dtype, n, stream
         "hvd_adasum_partials": [_PTR] * 4 + [_INT, _LL, _PTR],

@@ -47,8 +47,8 @@ from ._cuda_build import load_library
 
 KERNEL_HEAD_DIMS = (64, 128, 256)   # the widths the kernels are built for
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
-# The code hvd_flash_attention_fwd and hvd_flash_attention_bwd_dkv return
-# for a failed tensor-map encode, plus the CUresult.
+# The code each 16-bit entry (hvd_flash_attention_fwd, _bwd_dkv and
+# _bwd_dq) returns for a failed tensor-map encode, plus the CUresult.
 _TENSOR_MAP_ERROR = 100000
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 

@@ -14,7 +14,8 @@ warm-ups):
   and at head dim 256 (2, 2048, 16, 256);
 - K3-bwd dK/dV and dQ at (2, 2048, 32, 128) causal bf16, non-causal,
   at head dim 64, in float16, at ragged lengths (L = 1000 and 2047),
-  and at head dim 256 (2, 2048, 16, 256);
+  and at head dim 256 (2, 2048, 16, 256), and the whole backward
+  (``flash_attention_bwd``: di, dK/dV and dQ) at the first of them;
 - F.scaled_dot_product_attention at the first shape, as a yardstick.
 
 With ``--e2e`` it also times what the forward moves end to end, at
@@ -98,6 +99,10 @@ def kernels(torch, fa, dev):
         out[f"dq_{name}_ms"] = time_ms(
             torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, di,
                                                      causal, scale))
+        if name == "b2":
+            out["bwd_b2_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal))
         del q, k, v, do, o, lse, di
     return out
 

@@ -1,9 +1,10 @@
 """horovod_tpu_torch's CUDA kernels on the card: the flash-attention
 forward and its dK/dV and dQ backward kernels against their plain
 versions (ragged lengths, float16 and head dims the wrapper pads
-included), the dK/dV kernel's failed tensor-map encode and ptxas's
-spill report, the forward's bitwise repeatability, the Adasum kernels K1
-and K2 against theirs, their launch counters, attention() on CUDA
+included), the dK/dV and dQ kernels' failed tensor-map encodes and
+ptxas's spill reports, the forward's and the backward's bitwise
+repeatability, the Adasum kernels K1 and K2 against theirs, their
+launch counters, attention() on CUDA
 tensors, the tied LM head's mixed product against the float32 one, and
 the serving (both ladders), training and two-rank gloo Adasum paths
 through the kernels.
@@ -256,12 +257,18 @@ def test_backward_unsupported_inputs_raise_before_launch(card):
     assert (fa.launches_dkv, fa.launches_dq) == before
 
 
-def test_backward_is_bitwise_repeatable(card):
-    q, k, v, do = _bwd_inputs(card, (2, 512, 4, 128), torch.bfloat16)
-    o, lse = fa.flash_attention_fwd(q, k, v, True)
-    first = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+@pytest.mark.parametrize("L,D,causal", [(512, 128, True),
+                                         (1000, 128, False),
+                                         (2047, 128, True),
+                                         (1000, 64, False),
+                                         (1000, 256, True)])
+def test_backward_is_bitwise_repeatable(card, L, D, causal):
+    """Both backward kernels, ragged lengths and non-causal included."""
+    q, k, v, do = _bwd_inputs(card, (2, L, 4, D), torch.bfloat16, seed=L)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     for _ in range(3):
-        again = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -270,17 +277,17 @@ def test_backward_is_bitwise_repeatable(card):
 # 128 rows at D = 64, 64 at D = 128 and 32 at D = 256, one instantiation
 # for any L.
 
-def _dkv_and_plain(q, k, v, do, causal):
-    """(dk, dv) of the dK/dV kernel alone and of the plain backward."""
+def _kernel_and_plain(kernel, q, k, v, do, causal):
+    """What one backward kernel ("dkv": (dk, dv); "dq": dq) returns alone,
+    and the plain backward's (dq, dk, dv)."""
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
     di = fa.backward_di(o, do)
-    before = fa.launches_dkv
-    got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal,
-                                     q.shape[-1] ** -0.5)
+    before = getattr(fa, f"launches_{kernel}")
+    got = getattr(fa, f"flash_attention_bwd_{kernel}")(
+        q, k, v, do, lse, di, causal, q.shape[-1] ** -0.5)
     torch.cuda.synchronize()
-    assert fa.launches_dkv == before + 1
-    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)[1:]
-    return got, ref
+    assert getattr(fa, f"launches_{kernel}") == before + 1
+    return got, fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -292,7 +299,8 @@ def _dkv_and_plain(q, k, v, do, causal):
                                  (256, 33), (256, 65), (256, 1000)])
 def test_dkv_kernel_at_lengths_around_its_tiles(card, D, L, causal):
     q, k, v, do = _bwd_inputs(card, (2, L, 2, D), torch.bfloat16, seed=L)
-    (dk, dv), (dk_ref, dv_ref) = _dkv_and_plain(q, k, v, do, causal)
+    (dk, dv), (_, dk_ref, dv_ref) = _kernel_and_plain("dkv", q, k, v, do,
+                                                      causal)
     assert all(g.shape == q.shape and g.is_contiguous() for g in (dk, dv))
     tol = chip_smoke.TOL_SLICE[torch.bfloat16]
     assert chip_smoke.slice_rel_err(dv, dv_ref) <= tol
@@ -320,8 +328,8 @@ def test_dkv_kernel_through_the_head_dim_pad(card, D, dtype):
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_dkv_kernel_in_float16(card, D, causal):
     q, k, v, do = _bwd_inputs(card, (2, 700, 2, D), torch.float16, seed=D)
-    got, ref = _dkv_and_plain(q, k, v, do, causal)
-    assert chip_smoke.grads_rel_err(got, ref) <= \
+    got, ref = _kernel_and_plain("dkv", q, k, v, do, causal)
+    assert chip_smoke.grads_rel_err(got, ref[1:]) <= \
         chip_smoke.TOL_SLICE[torch.float16]
 
 
@@ -334,8 +342,8 @@ def test_dkv_kernel_reads_strided_and_head_major_views_in_place(card):
     v, do = (t.transpose(1, 2) for t in
              _qkv(card, (2, 4, 300, 128), torch.bfloat16, seed=7)[:2])
     assert not q.is_contiguous() and v.stride(2) > v.stride(1)
-    got, ref = _dkv_and_plain(q, k, v, do, True)
-    assert chip_smoke.grads_rel_err(got, ref) <= \
+    got, ref = _kernel_and_plain("dkv", q, k, v, do, True)
+    assert chip_smoke.grads_rel_err(got, ref[1:]) <= \
         chip_smoke.TOL_SLICE[torch.bfloat16]
 
 
@@ -356,22 +364,112 @@ def test_dkv_tensor_map_failure_raises_before_any_output(card):
     assert (fa.launches_dkv, fa.launches_dq) == before
 
 
-def test_dkv_kernel_builds_with_no_spills(card, tmp_path):
-    """ptxas's report for every dK/dV instantiation: 12 (bf16, f16 x
-    D = 64, 128, 256 x causal or not), none of them a ragged variant,
-    and no spills at D = 64 and 128."""
+@pytest.fixture(scope="module")
+def bwd_ptxas(tmp_path_factory):
+    """ptxas's report for every kernel of the backward source, built once
+    for the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
     from horovod_tpu_torch.ops import _cuda_build as cb
     out = subprocess.run(
         [cb._nvcc(), "-Xptxas=-v", *cb.NVCC_FLAGS, "-o",
-         str(tmp_path / "bwd.so"), cb.source_path("flash_attention_bwd")],
+         str(tmp_path_factory.mktemp("bwd") / "bwd.so"),
+         cb.source_path("flash_attention_bwd")],
         capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
-    dkv = [r for r in cb.ptxas_resources(out.stdout + out.stderr)
-           if "flash_bwd_dkv_wgmma" in r["kernel"]]
+    return cb.ptxas_resources(out.stdout + out.stderr)
+
+
+def test_dkv_kernel_builds_with_no_spills(card, bwd_ptxas):
+    """ptxas's report for every dK/dV instantiation: 12 (bf16, f16 x
+    D = 64, 128, 256 x causal or not), none of them a ragged variant,
+    and no spills at D = 64 and 128."""
+    dkv = [r for r in bwd_ptxas if "flash_bwd_dkv_wgmma" in r["kernel"]]
     assert len(dkv) == 12, [r["kernel"] for r in dkv]
     for r in dkv:
         if "256" not in r["kernel"]:
             assert (r["spill_stores"], r["spill_loads"]) == (0, 0), r
+
+
+def test_dq_kernel_builds_with_no_spills(card, bwd_ptxas):
+    """ptxas's report for every 16-bit dQ instantiation: 12 (bf16, f16 x
+    D = 64, 128, 256 x causal or not), all of them the wgmma kernel and
+    none a ragged variant, and no spills at D = 64 and 128."""
+    dq = [r for r in bwd_ptxas if "flash_bwd_dq" in r["kernel"]
+          and "f32" not in r["kernel"]]
+    assert len(dq) == 12, [r["kernel"] for r in dq]
+    for r in dq:
+        assert "flash_bwd_dq_wgmma" in r["kernel"], r
+        if "256" not in r["kernel"]:
+            assert (r["spill_stores"], r["spill_loads"]) == (0, 0), r
+
+
+# ---------------------------------------------------------------------------
+# The dQ kernel (wgmma, TMA K/V ring): 128 query rows a CTA in two
+# consumer warpgroups (64 at D = 256, one consumer), key tiles of 64, one
+# instantiation for any L.
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,L", [(128, 1), (128, 63), (128, 64),
+                                 (128, 65), (128, 127), (128, 128),
+                                 (128, 129), (128, 2047), (64, 1),
+                                 (64, 65), (64, 129), (64, 2047),
+                                 (256, 1), (256, 63), (256, 65),
+                                 (256, 1000)])
+def test_dq_kernel_at_lengths_around_its_tiles(card, D, L, causal):
+    q, k, v, do = _bwd_inputs(card, (2, L, 2, D), torch.bfloat16, seed=L)
+    dq, (dq_ref, _, dv_ref) = _kernel_and_plain("dq", q, k, v, do, causal)
+    assert dq.shape == q.shape and dq.is_contiguous()
+    if L == 1:
+        # One key: a softmax over one score has no gradient, so dQ is 0
+        # and both sides hold only the float32 rounding of dP - di.
+        dv_max = float(dv_ref.float().abs().max())
+        assert float(dq.float().abs().max()) <= 1e-4 * dv_max
+        assert float(dq_ref.float().abs().max()) <= 1e-4 * dv_max
+    else:
+        assert chip_smoke.slice_rel_err(dq, dq_ref) <= \
+            chip_smoke.TOL_SLICE[torch.bfloat16]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_dq_kernel_in_float16(card, D, causal):
+    q, k, v, do = _bwd_inputs(card, (2, 700, 2, D), torch.float16, seed=D)
+    dq, ref = _kernel_and_plain("dq", q, k, v, do, causal)
+    assert chip_smoke.slice_rel_err(dq, ref[0]) <= \
+        chip_smoke.TOL_SLICE[torch.float16]
+
+
+def test_dq_kernel_reads_strided_and_head_major_views_in_place(card):
+    """q and k as views of one packed (B, L, 3, H, D) projection, v and
+    dO as (B, L, H, D) views of (B, H, L, D) tensors: each gets its own
+    tensor map in its own strides."""
+    qkv = torch.randn((2, 300, 3, 4, 128), device=card).to(torch.bfloat16)
+    q, k, _ = qkv.unbind(2)
+    v, do = (t.transpose(1, 2) for t in
+             _qkv(card, (2, 4, 300, 128), torch.bfloat16, seed=7)[:2])
+    assert not q.is_contiguous() and v.stride(2) > v.stride(1)
+    dq, ref = _kernel_and_plain("dq", q, k, v, do, True)
+    assert chip_smoke.slice_rel_err(dq, ref[0]) <= \
+        chip_smoke.TOL_SLICE[torch.bfloat16]
+
+
+def test_dq_tensor_map_failure_raises_before_any_output(card):
+    """The dQ launch alone on a view TMA cannot map (a batch stride of
+    2^40 elements on a batch of one) reports the failed encode, and no
+    kernel runs."""
+    q, k, v, do = _bwd_inputs(card, (1, 128, 2, 64), torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    di = fa.backward_di(o, do)
+    far = do.as_strided(do.shape, (2 ** 40, *do.stride()[1:]))
+    assert torch.equal(far, do)
+    before = (fa.launches_dkv, fa.launches_dq)
+    with pytest.raises(RuntimeError, match=r"hvd_flash_attention_bwd_dq: "
+                                           r"tensor-map encode failed with "
+                                           r"CUresult \d+ \(strides .*"
+                                           r"1099511627776"):
+        fa.flash_attention_bwd_dq(q, k, v, far, lse, di, True, 64 ** -0.5)
+    assert (fa.launches_dkv, fa.launches_dq) == before
 
 
 def _small_cfg(**kw):
