@@ -324,16 +324,29 @@ def test_dkv_kernel_through_the_head_dim_pad(card, D, dtype):
     assert chip_smoke.grads_rel_err(got, ref) <= chip_smoke.TOL_SLICE[dtype]
 
 
+# ---------------------------------------------------------------------------
+# Either backward kernel alone.
+
+def _kernel_grads(kernel, got, ref):
+    """The kernel's outputs and the slice of the plain (dq, dk, dv) they
+    are held against, as matching tuples."""
+    return ((got,), ref[:1]) if kernel == "dq" else (got, ref[1:])
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [64, 128, 256])
-def test_dkv_kernel_in_float16(card, D, causal):
+def test_backward_kernel_in_float16(card, D, causal, kernel):
     q, k, v, do = _bwd_inputs(card, (2, 700, 2, D), torch.float16, seed=D)
-    got, ref = _kernel_and_plain("dkv", q, k, v, do, causal)
-    assert chip_smoke.grads_rel_err(got, ref[1:]) <= \
+    got, ref = _kernel_grads(kernel, *_kernel_and_plain(kernel, q, k, v, do,
+                                                        causal))
+    assert chip_smoke.grads_rel_err(got, ref) <= \
         chip_smoke.TOL_SLICE[torch.float16]
 
 
-def test_dkv_kernel_reads_strided_and_head_major_views_in_place(card):
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_backward_kernel_reads_strided_and_head_major_views_in_place(
+        card, kernel):
     """q and k as views of one packed (B, L, 3, H, D) projection, v and
     dO as (B, L, H, D) views of (B, H, L, D) tensors: each gets its own
     tensor map in its own strides."""
@@ -342,24 +355,31 @@ def test_dkv_kernel_reads_strided_and_head_major_views_in_place(card):
     v, do = (t.transpose(1, 2) for t in
              _qkv(card, (2, 4, 300, 128), torch.bfloat16, seed=7)[:2])
     assert not q.is_contiguous() and v.stride(2) > v.stride(1)
-    got, ref = _kernel_and_plain("dkv", q, k, v, do, True)
-    assert chip_smoke.grads_rel_err(got, ref[1:]) <= \
+    got, ref = _kernel_grads(kernel, *_kernel_and_plain(kernel, q, k, v, do,
+                                                        True))
+    assert chip_smoke.grads_rel_err(got, ref) <= \
         chip_smoke.TOL_SLICE[torch.bfloat16]
 
 
-def test_dkv_tensor_map_failure_raises_before_any_output(card):
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_backward_tensor_map_failure_raises_before_any_output(card, kernel):
     """A view the kernels read but TMA cannot map (a batch stride of
     2^40 elements, past TMA's 2^40-byte limit, on a batch of one): the
-    dK/dV launch reports the failed encode and no kernel runs."""
+    kernel's launch alone, and the whole backward, report the failed
+    encode and no kernel runs."""
     q, k, v, do = _bwd_inputs(card, (1, 128, 2, 64), torch.bfloat16)
     o, lse = fa.flash_attention_fwd(q, k, v, True)
+    di = fa.backward_di(o, do)
     far = do.as_strided(do.shape, (2 ** 40, *do.stride()[1:]))
     assert torch.equal(far, do)
     before = (fa.launches_dkv, fa.launches_dq)
-    with pytest.raises(RuntimeError, match=r"hvd_flash_attention_bwd_dkv: "
-                                           r"tensor-map encode failed with "
+    with pytest.raises(RuntimeError, match=rf"hvd_flash_attention_bwd_{kernel}"
+                                           r": tensor-map encode failed with "
                                            r"CUresult \d+ \(strides .*"
                                            r"1099511627776"):
+        getattr(fa, f"flash_attention_bwd_{kernel}")(
+            q, k, v, far, lse, di, True, 64 ** -0.5)
+    with pytest.raises(RuntimeError, match=r"tensor-map encode failed"):
         fa.flash_attention_bwd(q, k, v, o, lse, far, True)
     assert (fa.launches_dkv, fa.launches_dq) == before
 
@@ -380,26 +400,16 @@ def bwd_ptxas(tmp_path_factory):
     return cb.ptxas_resources(out.stdout + out.stderr)
 
 
-def test_dkv_kernel_builds_with_no_spills(card, bwd_ptxas):
-    """ptxas's report for every dK/dV instantiation: 12 (bf16, f16 x
-    D = 64, 128, 256 x causal or not), none of them a ragged variant,
-    and no spills at D = 64 and 128."""
-    dkv = [r for r in bwd_ptxas if "flash_bwd_dkv_wgmma" in r["kernel"]]
-    assert len(dkv) == 12, [r["kernel"] for r in dkv]
-    for r in dkv:
-        if "256" not in r["kernel"]:
-            assert (r["spill_stores"], r["spill_loads"]) == (0, 0), r
-
-
-def test_dq_kernel_builds_with_no_spills(card, bwd_ptxas):
-    """ptxas's report for every 16-bit dQ instantiation: 12 (bf16, f16 x
-    D = 64, 128, 256 x causal or not), all of them the wgmma kernel and
-    none a ragged variant, and no spills at D = 64 and 128."""
-    dq = [r for r in bwd_ptxas if "flash_bwd_dq" in r["kernel"]
-          and "f32" not in r["kernel"]]
-    assert len(dq) == 12, [r["kernel"] for r in dq]
-    for r in dq:
-        assert "flash_bwd_dq_wgmma" in r["kernel"], r
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_backward_kernel_builds_with_no_spills(card, bwd_ptxas, kernel):
+    """ptxas's report for every 16-bit instantiation of the kernel: 12
+    (bf16, f16 x D = 64, 128, 256 x causal or not), all of them the wgmma
+    kernel and none a ragged variant, and no spills at D = 64 and 128."""
+    found = [r for r in bwd_ptxas if f"flash_bwd_{kernel}" in r["kernel"]
+             and "f32" not in r["kernel"]]
+    assert len(found) == 12, [r["kernel"] for r in found]
+    for r in found:
+        assert f"flash_bwd_{kernel}_wgmma" in r["kernel"], r
         if "256" not in r["kernel"]:
             assert (r["spill_stores"], r["spill_loads"]) == (0, 0), r
 
@@ -429,47 +439,6 @@ def test_dq_kernel_at_lengths_around_its_tiles(card, D, L, causal):
     else:
         assert chip_smoke.slice_rel_err(dq, dq_ref) <= \
             chip_smoke.TOL_SLICE[torch.bfloat16]
-
-
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128, 256])
-def test_dq_kernel_in_float16(card, D, causal):
-    q, k, v, do = _bwd_inputs(card, (2, 700, 2, D), torch.float16, seed=D)
-    dq, ref = _kernel_and_plain("dq", q, k, v, do, causal)
-    assert chip_smoke.slice_rel_err(dq, ref[0]) <= \
-        chip_smoke.TOL_SLICE[torch.float16]
-
-
-def test_dq_kernel_reads_strided_and_head_major_views_in_place(card):
-    """q and k as views of one packed (B, L, 3, H, D) projection, v and
-    dO as (B, L, H, D) views of (B, H, L, D) tensors: each gets its own
-    tensor map in its own strides."""
-    qkv = torch.randn((2, 300, 3, 4, 128), device=card).to(torch.bfloat16)
-    q, k, _ = qkv.unbind(2)
-    v, do = (t.transpose(1, 2) for t in
-             _qkv(card, (2, 4, 300, 128), torch.bfloat16, seed=7)[:2])
-    assert not q.is_contiguous() and v.stride(2) > v.stride(1)
-    dq, ref = _kernel_and_plain("dq", q, k, v, do, True)
-    assert chip_smoke.slice_rel_err(dq, ref[0]) <= \
-        chip_smoke.TOL_SLICE[torch.bfloat16]
-
-
-def test_dq_tensor_map_failure_raises_before_any_output(card):
-    """The dQ launch alone on a view TMA cannot map (a batch stride of
-    2^40 elements on a batch of one) reports the failed encode, and no
-    kernel runs."""
-    q, k, v, do = _bwd_inputs(card, (1, 128, 2, 64), torch.bfloat16)
-    o, lse = fa.flash_attention_fwd(q, k, v, True)
-    di = fa.backward_di(o, do)
-    far = do.as_strided(do.shape, (2 ** 40, *do.stride()[1:]))
-    assert torch.equal(far, do)
-    before = (fa.launches_dkv, fa.launches_dq)
-    with pytest.raises(RuntimeError, match=r"hvd_flash_attention_bwd_dq: "
-                                           r"tensor-map encode failed with "
-                                           r"CUresult \d+ \(strides .*"
-                                           r"1099511627776"):
-        fa.flash_attention_bwd_dq(q, k, v, far, lse, di, True, 64 ** -0.5)
-    assert (fa.launches_dkv, fa.launches_dq) == before
 
 
 def _small_cfg(**kw):
