@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of horovod_tpu_torch on one NVIDIA card: builds the port's
-CUDA kernels from this checkout and drives its serving, training and
-Adasum data-parallel paths.
+CUDA kernels from this checkout and drives its serving, training,
+Adasum data-parallel and collective paths.
 
     python3 chip_smoke.py
 
@@ -73,18 +73,35 @@ Phases, in order; any failure exits non-zero before the result lines:
    gradient sizes.
 9. Adasum data-parallel training, two ranks on one card: spawned
    processes on a gloo group (NCCL refuses two ranks on one device),
-   Llama-2-7B width, 2 layers, B = 1, L = 2048, bf16,
-   HOROVOD_ADASUM_PALLAS=1: init -> broadcast_parameters (rank 1 starts
+   Llama-2-7B width, 2 layers, B = 1, L = 2048, bf16, default knobs
+   (Adasum's vhdd route): init -> broadcast_parameters (rank 1 starts
    from another seed) -> DistributedOptimizer(adamw(3e-4), op=Adasum,
    compression=fp16) -> 3 steps, each rank on its own batch. Gates:
    finite losses; parameters bitwise equal across ranks after the
    broadcast and after every step; K1 and K2 each launched once per
-   gradient tensor per step on each rank; at step 0 one reduced FFN
-   gradient equals the plain fold of the same gathered wires within
-   phase 8's tolerance. Per step: backward (hooks included), the wire's
-   gather (host staging included), the fold (K1 + K2, CUDA events),
-   AdamW, peak memory per rank.
-10. A ``{"kernels": [...]}`` line, the card line, then the last line
+   gradient tensor per step on each rank (n = 2: one halving level); at
+   step 0 one reduced FFN gradient equals the plain fold of both ranks'
+   wires (gathered after the step) within phase 8's tolerance. Per
+   step: forward and backward (hooks included), the exchange (host
+   staging and gloo, host clock), the K1/K2 work (CUDA events), AdamW,
+   peak memory per rank. Then the gather route
+   (HOROVOD_ADASUM_PALLAS=1) for two steps with the same gates, and
+   step 0's reduced FFN gradient of the two routes within phase 8's
+   fp16 tolerance of each other.
+10. Three gloo ranks on one card, default knobs (a power-of-two block
+   of 2 and a block of 1, then one merge): vhdd Adasum of 4096 x 11008
+   and 32000 x 4096 contributions in float16 and bfloat16 against the
+   float64 ``adasum_reference`` of the same three (relative error of
+   the norm within TOL_FOLD3: two roundings to the dtype), ranks
+   bitwise equal, K1 and K2 launched twice on ranks 0 and 1 and once on
+   rank 2 per call; then allgather with uneven first dims, alltoall with
+   uneven splits, reducescatter with a remainder, Min, Max and Product
+   with prescale and postscale, grouped allgather and reducescatter,
+   ``allgather_object``, ``barrier``, and a process set {0, 2}
+   (allreduce, and Adasum with one K1 and one K2 launch on each
+   member; rank 1 is refused), each checked against host-computed
+   answers and timed.
+11. A ``{"kernels": [...]}`` line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Forward tolerances, on the worst row's relative error (``row_rel_err``:
@@ -159,6 +176,7 @@ ADASUM_SIZES = (1, 1000, 2 ** 20 + 7, 4096 * 11008, 32000 * 4096)
 FAULT_BLOCK = 256 * 128  # the JAX kernel's block: BLOCK_ROWS x LANES
 DP_LAYERS = 2
 DP_STEPS = 3
+DP_GATHER_STEPS = 2
 DP_RANKS = 2
 
 
@@ -1037,38 +1055,86 @@ def _params_digest(model):
     return h.hexdigest()
 
 
-def dp_rank_main(rank, port, results, device, cfg_kw, seq):
-    """One rank of phase 9, in a spawned process: the port's
-    init -> broadcast_parameters -> DistributedOptimizer(adamw,
-    op=Adasum, compression=fp16) -> steps, with the gather and the fold
-    timed around the port's own functions. ``device``, ``cfg_kw`` and
-    ``seq`` are the card, the model's config and the sequence length
-    (the tests rehearse the phase on the CPU at a small size)."""
-    status, payload = "error", None
-    cuda = device.startswith("cuda")
+def _join_world(rank, size, port, device, extra_env=None):
+    """Environment and init of one spawned rank of a gloo world on one
+    card (NCCL refuses two ranks on one device)."""
+    os.environ.update({
+        "HOROVOD_RANK": str(rank), "HOROVOD_SIZE": str(size),
+        "HOROVOD_LOCAL_RANK": str(rank), "HOROVOD_LOCAL_SIZE": str(size),
+        "HOROVOD_COORDINATOR_ADDR": f"localhost:{port}",
+        "HOROVOD_GLOO_TIMEOUT_SECONDS": "300", **(extra_env or {})})
+    sys.path.insert(0, REPO)
+    import horovod_tpu_torch as hvd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    hvd.init()
+    return hvd
 
-    def sync():
-        if cuda:
+
+class _Clock:
+    """Sums of host-clock seconds (``exchange``: host staging and gloo)
+    and of device milliseconds (``combine``: K1/K2 work, CUDA events;
+    host clock on the CPU) around the wrapped functions."""
+
+    def __init__(self, cuda):
+        self.cuda = cuda
+        self.reset()
+
+    def reset(self):
+        self.exchange_s, self.combine_ms = 0.0, 0.0
+
+    def sync(self):
+        if self.cuda:
             torch.cuda.synchronize()
 
+    def exchange(self, fn):
+        def timed(*args, **kw):
+            self.sync()
+            t0 = time.monotonic()
+            out = fn(*args, **kw)
+            self.sync()
+            self.exchange_s += time.monotonic() - t0
+            return out
+        return timed
+
+    def combine(self, fn):
+        def timed(*args, **kw):
+            if not self.cuda:
+                t0 = time.monotonic()
+                out = fn(*args, **kw)
+                self.combine_ms += 1e3 * (time.monotonic() - t0)
+                return out
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            self.combine_ms += start.elapsed_time(end)
+            return out
+        return timed
+
+
+def dp_rank_main(rank, port, results, device, cfg_kw, seq, route, steps):
+    """One rank of phase 9, in a spawned process: the port's
+    init -> broadcast_parameters -> DistributedOptimizer(adamw,
+    op=Adasum, compression=fp16) -> steps, on Adasum's ``route``:
+    "vhdd" under default knobs, "gather" under
+    HOROVOD_ADASUM_PALLAS=1. The exchange and the K1/K2 work are timed
+    around the port's own functions. ``device``, ``cfg_kw`` and ``seq``
+    are the card, the model's config and the sequence length (the tests
+    rehearse the phase on the CPU at a small size)."""
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
     try:
-        os.environ.update({
-            "HOROVOD_RANK": str(rank), "HOROVOD_SIZE": str(DP_RANKS),
-            "HOROVOD_LOCAL_RANK": str(rank),
-            "HOROVOD_LOCAL_SIZE": str(DP_RANKS),
-            "HOROVOD_COORDINATOR_ADDR": f"localhost:{port}",
-            "HOROVOD_ADASUM_PALLAS": "1",
-            "HOROVOD_GLOO_TIMEOUT_SECONDS": "300"})
-        sys.path.insert(0, REPO)
-        import horovod_tpu_torch as hvd
+        hvd = _join_world(rank, DP_RANKS, port, device,
+                          {"HOROVOD_ADASUM_PALLAS": "1"}
+                          if route == "gather" else None)
         from horovod_tpu_torch.models import transformer as tfm
         from horovod_tpu_torch.ops import adasum as adasum_mod
         from horovod_tpu_torch.ops import adasum_kernels as ak
         from horovod_tpu_torch.parallel import train
-        torch.backends.cuda.matmul.allow_tf32 = False
-        if cuda:
-            torch.cuda.set_device(torch.device(device))
-        hvd.init()
         cfg = tfm.TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
         model = tfm.init_params(cfg, seed=rank, device=device)
         before = _params_digest(model)
@@ -1077,80 +1143,83 @@ def dp_rank_main(rank, port, results, device, cfg_kw, seq):
             train.adamw(model.parameters(), LR),
             named_parameters=model.named_parameters(), op=hvd.Adasum,
             compression=hvd.Compression.fp16)
-        timing = {"gather_s": 0.0, "fold_ms": 0.0}
+        clock = _Clock(cuda)
         probe = {}
-        gather, fold = adasum_mod.gather_rows, adasum_mod._tree_fold
+        ffn = cfg.d_ff * cfg.d_model
+        if route == "vhdd":
+            wire = adasum_mod._DistWire
+            for name in ("swap", "partials", "merge"):
+                setattr(wire, name, clock.exchange(getattr(wire, name)))
+            for name in ("_local_partials", "_blend"):
+                setattr(adasum_mod, name,
+                        clock.combine(getattr(adasum_mod, name)))
+            inner = adasum_mod.vhdd
 
-        def timed_gather(flat, pset):
-            sync()
-            t0 = time.monotonic()
-            rows = gather(flat, pset)
-            sync()
-            timing["gather_s"] += time.monotonic() - t0
-            return rows
+            def probed(seg, me, n, wire, use_kernel=False):
+                red = inner(seg, me, n, wire, use_kernel)
+                if "red" not in probe and seg.numel() == ffn:
+                    probe["wire"], probe["red"] = seg.clone(), red.clone()
+                return red
+            adasum_mod.vhdd = probed
+        else:
+            adasum_mod.gather_rows = clock.exchange(adasum_mod.gather_rows)
+            inner = clock.combine(adasum_mod._tree_fold)
 
-        def timed_fold(rows, use_pallas=False):
-            t0 = time.monotonic()
-            if cuda:
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                start.record()
-            red = fold(rows, use_pallas)
-            if cuda:
-                end.record()
-                torch.cuda.synchronize()
-                timing["fold_ms"] += start.elapsed_time(end)
-            else:
-                timing["fold_ms"] += 1e3 * (time.monotonic() - t0)
-            if "rows" not in probe and rows[0].numel() == \
-                    cfg.d_ff * cfg.d_model:
-                probe["rows"] = [r.clone() for r in rows]
-                probe["red"] = red.clone()
-            return red
-
-        adasum_mod.gather_rows, adasum_mod._tree_fold = timed_gather, \
-            timed_fold
-        steps = []
+            def probed(rows, use_pallas=False):
+                red = inner(rows, use_pallas)
+                if "red" not in probe and rows[0].numel() == ffn:
+                    probe["wire"], probe["red"] = rows[rank].clone(), \
+                        red.clone()
+                return red
+            adasum_mod._tree_fold = probed
+        steps_out = []
         digests = [_params_digest(model)]
         ak.launches_partials = ak.launches_scaled_add = 0
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        for step in range(DP_STEPS):
+        for step in range(steps):
             tokens = np.random.RandomState(100 * rank + step).randint(
                 0, cfg.vocab, (1, seq)).astype(np.int64)
             batch = {"tokens": torch.from_numpy(tokens).to(device),
                      "targets": torch.from_numpy(
                          np.roll(tokens, -1, axis=1)).to(device)}
-            timing.update(gather_s=0.0, fold_ms=0.0)
+            clock.reset()
             opt.zero_grad()
-            sync()
+            clock.sync()
             t0 = time.monotonic()
             loss = tfm.loss_fn(cfg, model, batch)
             loss.backward()
-            sync()
+            clock.sync()
             t1 = time.monotonic()
             opt.step()
-            sync()
+            clock.sync()
             t2 = time.monotonic()
-            steps.append({"loss": float(loss.detach()),
-                          "forward_backward_ms": 1e3 * (t1 - t0),
-                          "gather_ms": 1e3 * timing["gather_s"],
-                          "fold_ms": timing["fold_ms"],
-                          "adamw_ms": 1e3 * (t2 - t1),
-                          "step_ms": 1e3 * (t2 - t0)})
+            steps_out.append({"loss": float(loss.detach()),
+                              "forward_backward_ms": 1e3 * (t1 - t0),
+                              "exchange_ms": 1e3 * clock.exchange_s,
+                              "combine_ms": clock.combine_ms,
+                              "adamw_ms": 1e3 * (t2 - t1),
+                              "step_ms": 1e3 * (t2 - t0)})
             digests.append(_params_digest(model))
         launches = (ak.launches_partials, ak.launches_scaled_add)
-        plain = ak.adasum_pair_combine_plain(*probe["rows"])
+        # Outside the timed window: both ranks' step-0 FFN wires, and
+        # their plain fold.
+        rows = adasum_mod.gather_rows(probe["wire"],
+                                      hvd.global_process_set())
+        plain = ak.adasum_pair_combine_plain(*rows)
         payload = {
-            "backend": hvd.backend(), "rank": hvd.rank(),
+            "route": route, "backend": hvd.backend(), "rank": hvd.rank(),
             "n_parameters": sum(p.numel() for p in model.parameters()),
             "n_grad_tensors": len(list(model.parameters())),
             "wire_bytes": 2 * sum(p.numel() for p in model.parameters()),
             "digest_before_broadcast": before, "digests": digests,
-            "steps": steps, "launches": launches,
+            "steps": steps_out, "launches": launches,
             "probe_rel_err": rel_err(probe["red"], plain),
+            "probe_norm": float(probe["red"].float().norm()),
             "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                      if cuda else None)}
+        if rank == 0:
+            payload["probe_red"] = probe["red"].cpu().numpy()
         status = "ok"
         hvd.shutdown()
     except BaseException:  # noqa: BLE001 — reported to the parent
@@ -1160,23 +1229,23 @@ def dp_rank_main(rank, port, results, device, cfg_kw, seq):
         results.put((rank, status, payload))
 
 
-def phase_adasum_training(device="cuda:0", cfg_kw=None, seq=SEQ,
-                          timeout=900.0):
+def spawn_ranks(target, size, args, timeout, phase):
+    """Run ``target(rank, port, results, *args)`` on ``size`` spawned
+    processes; their payloads in rank order. Every process is joined,
+    and killed if it outlives the timeout."""
     import multiprocessing as mp
     import queue
-    cfg_kw = cfg_kw or dict(LLAMA2_7B, n_layers=DP_LAYERS)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=dp_rank_main,
-                         args=(r, port, results, device, cfg_kw, seq))
-             for r in range(DP_RANKS)]
+    procs = [ctx.Process(target=target, args=(r, port, results, *args))
+             for r in range(size)]
     for p in procs:
         p.start()
     got = {}
     deadline = time.monotonic() + timeout
     try:
-        while len(got) < DP_RANKS and time.monotonic() < deadline:
+        while len(got) < size and time.monotonic() < deadline:
             try:
                 rank, status, payload = results.get(timeout=1.0)
             except queue.Empty:
@@ -1191,36 +1260,295 @@ def phase_adasum_training(device="cuda:0", cfg_kw=None, seq=SEQ,
                 p.kill()
                 p.join(10)
     failed = {r: v for r, (st, v) in got.items() if st != "ok"}
-    if failed or len(got) != DP_RANKS:
-        raise AssertionError(f"phase 9: ranks {sorted(got)} reported; "
+    if failed or len(got) != size:
+        raise AssertionError(f"{phase}: ranks {sorted(got)} reported; "
                              f"failures: {failed}")
-    ranks = [got[r][1] for r in range(DP_RANKS)]
+    return [got[r][1] for r in range(size)]
+
+
+def phase_adasum_training(device="cuda:0", cfg_kw=None, seq=SEQ,
+                          timeout=900.0, route="vhdd", steps=DP_STEPS):
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, n_layers=DP_LAYERS)
+    tag = "phase 9" if route == "vhdd" else "phase 9 gather"
+    ranks = spawn_ranks(dp_rank_main, DP_RANKS,
+                        (device, cfg_kw, seq, route, steps), timeout, tag)
     for r in ranks:
-        log("phase 9: " + json.dumps(r))
+        log(f"{tag}: " + json.dumps({k: v for k, v in r.items()
+                                     if k != "probe_red"}))
     problems = []
     if any(r["backend"] != "gloo" for r in ranks):
         problems.append("the two ranks on one card are not on gloo")
     if ranks[0]["digest_before_broadcast"] == \
             ranks[1]["digest_before_broadcast"]:
         problems.append("rank 1 did not start from other weights")
-    for step in range(DP_STEPS + 1):
+    for step in range(steps + 1):
         if len({r["digests"][step] for r in ranks}) != 1:
             problems.append(f"parameters differ across ranks after "
                             f"{'the broadcast' if step == 0 else f'step {step - 1}'}")
     for r in ranks:
         if not all(np.isfinite(s["loss"]) for s in r["steps"]):
             problems.append(f"rank {r['rank']}: a loss is not finite")
-        # A CPU rehearsal runs the plain versions, which count nothing.
-        want = r["n_grad_tensors"] * DP_STEPS if device.startswith(
+        # n = 2: one halving level (vhdd) or one pair combine (gather)
+        # per gradient tensor. A CPU rehearsal runs the plain versions,
+        # which count nothing.
+        want = r["n_grad_tensors"] * steps if device.startswith(
             "cuda") else 0
         if r["launches"] != (want, want):
             problems.append(f"rank {r['rank']}: launches {r['launches']}, "
                             f"want {want} of K1 and of K2")
-        if r["probe_rel_err"] > TOL_COMBINE[torch.float16]:
+        if not (r["probe_rel_err"] <= TOL_COMBINE[torch.float16]
+                and r["probe_norm"] > 0):
             problems.append(f"rank {r['rank']}: reduced FFN gradient vs the "
                             f"plain fold: {r['probe_rel_err']}")
     if problems:
-        raise AssertionError("phase 9: " + "; ".join(problems))
+        raise AssertionError(f"{tag}: " + "; ".join(problems))
+    return ranks
+
+
+def routes_rel_err(vhdd_ranks, gather_ranks):
+    """Step 0's reduced FFN gradient on rank 0, vhdd against gather."""
+    return rel_err(torch.from_numpy(vhdd_ranks[0]["probe_red"]).float(),
+                   torch.from_numpy(gather_ranks[0]["probe_red"]).float())
+
+
+# Phase 10: three gloo ranks on the card (blocks of 2 and 1, one merge).
+COLL_RANKS = 3
+COLL_SIZES = {"adasum": ((4096, 11008), (32000, 4096)), "width": 4096,
+              "rows": 1000, "pair_adasum": (4096, 11008)}
+TOL_SUM = 1e-6        # float32 sums, products of 3 rows in another order
+# The non-power-of-two fold rounds to the dtype twice (the block's blend
+# and the merge's), each within phase 8's one-rounding tolerance.
+TOL_FOLD3 = {dtype: 2 * tol for dtype, tol in TOL_COMBINE.items()}
+
+
+def coll_contribution(device, shape, dtype, case, rank):
+    gen = torch.Generator(device=device).manual_seed(1000 * case + rank)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _host_rows(rank, rows, width, seed, dtype=torch.float32):
+    x = np.random.RandomState(seed + 31 * rank).randn(rows, width)
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+def _digest(t):
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                          .numpy()).hexdigest()
+
+
+def coll_rank_main(rank, port, results, device, sizes):
+    """One rank of phase 10: every collective of the port under
+    default knobs, each checked against host-computed answers where it
+    ran, timed on the host clock around a synchronised call."""
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    try:
+        hvd = _join_world(rank, COLL_RANKS, port, device)
+        from horovod_tpu_torch.ops import adasum_kernels as ak
+        n, width, rows = COLL_RANKS, sizes["width"], sizes["rows"]
+        cases = {}
+
+        def timed(name, fn):
+            sync()
+            t0 = time.monotonic()
+            out = fn()
+            sync()
+            cases[name] = {"ms": 1e3 * (time.monotonic() - t0)}
+            return out
+
+        def check(name, ok, err=None):
+            cases[name].update(ok=bool(ok), err=err)
+
+        adasum = []
+        case = 0
+        for shape in sizes["adasum"]:
+            for dtype in (torch.float16, torch.bfloat16):
+                x = coll_contribution(device, shape, dtype, case, rank)
+                ak.launches_partials = ak.launches_scaled_add = 0
+                name = f"adasum {shape} {str(dtype)[6:]}"
+                out = timed(name, lambda: hvd.allreduce(x, op=hvd.Adasum))
+                res = {"case": case, "shape": list(shape),
+                       "dtype": str(dtype)[6:], "digest": _digest(out),
+                       "launches": (ak.launches_partials,
+                                    ak.launches_scaled_add),
+                       "ms": cases.pop(name)["ms"]}
+                if rank == 0:
+                    res["bits"] = out.view(torch.int16).cpu().numpy()
+                adasum.append(res)
+                case += 1
+                del x, out
+        dev = torch.device(device)
+        # allgather, uneven first dims
+        xs = [_host_rows(r, rows + 7 * r, width, 1, torch.bfloat16)
+              for r in range(n)]
+        got = timed("allgather", lambda: hvd.allgather(xs[rank].to(dev)))
+        check("allgather", torch.equal(got.cpu(), torch.cat(xs)))
+        # alltoall, uneven splits
+        splits = [[64 * ((r + 2 * j) % 3 + 1) for j in range(n)]
+                  for r in range(n)]
+        ins = [_host_rows(r, sum(splits[r]), width, 2, torch.bfloat16)
+               for r in range(n)]
+        got, recv = timed("alltoall", lambda: hvd.alltoall(
+            ins[rank].to(dev), splits=splits[rank]))
+        want = torch.cat([torch.split(ins[src], splits[src])[rank]
+                          for src in range(n)])
+        check("alltoall", torch.equal(got.cpu(), want)
+              and recv.tolist() == [splits[src][rank] for src in range(n)])
+        # reducescatter, a remainder (3 * rows + 1 rows)
+        rs = [_host_rows(r, n * rows + 1, width, 3) for r in range(n)]
+        got = timed("reducescatter", lambda: hvd.reducescatter(
+            rs[rank].to(dev), op=hvd.Sum))
+        base, rem = divmod(n * rows + 1, n)
+        start = rank * base + min(rank, rem)
+        want = sum(x.double() for x in rs)[start:start + base
+                                           + (rank < rem)]
+        err = rel_err(got.double().cpu(), want)
+        check("reducescatter", err <= TOL_SUM, err)
+        # Min, Max, Product with prescale 2 and postscale 0.5
+        ms = [_host_rows(r, rows, width, 4) for r in range(n)]
+        for name, op, fold in (("min", hvd.Min, torch.minimum),
+                               ("max", hvd.Max, torch.maximum),
+                               ("product", hvd.Product, torch.mul)):
+            got = timed(name, lambda: hvd.allreduce(
+                ms[rank].to(dev), op=op, prescale_factor=2.0,
+                postscale_factor=0.5))
+            want = 2.0 * ms[0].double()
+            for x in ms[1:]:
+                want = fold(want, 2.0 * x.double())
+            want = 0.5 * want
+            err = rel_err(got.double().cpu(), want)
+            check(name, err <= (TOL_SUM if op == hvd.Product else 0.0), err)
+        # grouped allgather and reducescatter
+        ga = [[_host_rows(r, 64 * (r + 1), width, 5, torch.bfloat16),
+               _host_rows(r, 2 * r + 1, 128, 6, torch.float16)]
+              for r in range(n)]
+        got = timed("grouped_allgather", lambda: hvd.grouped_allgather(
+            [t.to(dev) for t in ga[rank]]))
+        check("grouped_allgather", all(
+            torch.equal(g.cpu(), torch.cat([ga[r][i] for r in range(n)]))
+            for i, g in enumerate(got)))
+        gr = [[_host_rows(r, 301, width, 7), _host_rows(r, 7, 1000, 8)]
+              for r in range(n)]
+        got = timed("grouped_reducescatter",
+                    lambda: hvd.grouped_reducescatter(
+                        [t.to(dev) for t in gr[rank]], op=hvd.Sum))
+        errs = []
+        for i, g in enumerate(got):
+            total = sum(gr[r][i].double() for r in range(n))
+            b, m = divmod(total.shape[0], n)
+            lo = rank * b + min(rank, m)
+            errs.append(rel_err(g.double().cpu(),
+                                total[lo:lo + b + (rank < m)]))
+        check("grouped_reducescatter", max(errs) <= TOL_SUM, max(errs))
+        # allgather_object and barrier
+        objs = timed("allgather_object", lambda: hvd.allgather_object(
+            {"rank": rank, "pad": "x" * (1000 * rank)}))
+        check("allgather_object", objs == [{"rank": r, "pad": "x" * (1000 * r)}
+                                           for r in range(n)])
+        timed("barrier", hvd.barrier)
+        check("barrier", True)
+        # A process set {0, 2}: allreduce and Adasum over it.
+        pair = hvd.add_process_set([0, 2])
+        if pair.included():
+            px = [_host_rows(r, rows, width, 9) for r in (0, 2)]
+            got = timed("set allreduce", lambda: hvd.allreduce(
+                px[pair.rank()].to(dev), op=hvd.Sum, process_set=pair))
+            err = rel_err(got.double().cpu(), px[0].double()
+                          + px[1].double())
+            check("set allreduce", err <= TOL_SUM, err)
+            ax = [coll_contribution(device, sizes["pair_adasum"],
+                                    torch.float16, 99, r) for r in (0, 2)]
+            ak.launches_partials = ak.launches_scaled_add = 0
+            got = timed("set adasum", lambda: hvd.allreduce(
+                ax[pair.rank()], op=hvd.Adasum, process_set=pair))
+            from horovod_tpu_torch.ops.adasum import adasum_reference
+            ref = adasum_reference([a.double().cpu().numpy().reshape(-1)
+                                    for a in ax])
+            err = float(np.linalg.norm(got.double().cpu().numpy()
+                                       .reshape(-1) - ref)
+                        / np.linalg.norm(ref))
+            check("set adasum", err <= TOL_COMBINE[torch.float16], err)
+            cases["set adasum"].update(
+                launches=(ak.launches_partials, ak.launches_scaled_add),
+                digest=_digest(got))
+        else:
+            try:
+                hvd.allreduce(torch.ones(2, device=dev), process_set=pair)
+                refused = False
+            except ValueError:
+                refused = True
+            cases["set refuses a non-member"] = {"ok": refused}
+        hvd.barrier()
+        payload = {"rank": rank, "backend": hvd.backend(), "adasum": adasum,
+                   "cases": cases}
+        status = "ok"
+        hvd.shutdown()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        payload = traceback.format_exc()
+    finally:
+        results.put((rank, status, payload))
+
+
+def phase_collectives(device="cuda:0", sizes=None, timeout=900.0):
+    sizes = sizes or COLL_SIZES
+    ranks = spawn_ranks(coll_rank_main, COLL_RANKS, (device, sizes),
+                        timeout, "phase 10")
+    from horovod_tpu_torch.ops import adasum as adasum_mod
+    cuda = device.startswith("cuda")
+    problems = []
+    if any(r["backend"] != "gloo" for r in ranks):
+        problems.append("the three ranks on one card are not on gloo")
+    # Blocks of 2 and 1: ranks 0 and 1 run one halving level and the
+    # merge, rank 2 the merge alone.
+    want_launches = [(2, 2), (2, 2), (1, 1)] if cuda else [(0, 0)] * 3
+    for i, res in enumerate(ranks[0]["adasum"]):
+        dtype = getattr(torch, res["dtype"])
+        contributions = [coll_contribution(device, tuple(res["shape"]),
+                                           dtype, res["case"], r)
+                         for r in range(COLL_RANKS)]
+        ref = adasum_mod.adasum_reference(
+            [c.double().cpu().numpy().reshape(-1) for c in contributions])
+        got = torch.from_numpy(res.pop("bits")).view(dtype)
+        res["rel_err"] = float(np.linalg.norm(
+            got.double().numpy().reshape(-1) - ref) / np.linalg.norm(ref))
+        res["ms_per_rank"] = [r["adasum"][i]["ms"] for r in ranks]
+        res["launches_per_rank"] = [r["adasum"][i]["launches"]
+                                    for r in ranks]
+        log("phase 10: " + json.dumps({k: v for k, v in res.items()
+                                       if k != "digest"}))
+        if len({r["adasum"][i]["digest"] for r in ranks}) != 1:
+            problems.append(f"adasum case {i}: ranks differ")
+        if [tuple(x) for x in res["launches_per_rank"]] != want_launches:
+            problems.append(f"adasum case {i}: launches "
+                            f"{res['launches_per_rank']}, want "
+                            f"{want_launches}")
+        if res["rel_err"] > TOL_FOLD3[dtype]:
+            problems.append(f"adasum case {i}: error {res['rel_err']} "
+                            f"against the float64 reference")
+        del contributions, ref, got
+    for r in ranks:
+        log(f"phase 10: rank {r['rank']} " + json.dumps(
+            {k: {kk: vv for kk, vv in v.items() if kk != "digest"}
+             for k, v in r["cases"].items()}))
+        for name, case in r["cases"].items():
+            if not case["ok"]:
+                problems.append(f"rank {r['rank']}: {name} {case}")
+    pair = [ranks[0]["cases"]["set adasum"], ranks[2]["cases"]["set adasum"]]
+    if pair[0]["digest"] != pair[1]["digest"]:
+        problems.append("set adasum: ranks 0 and 2 differ")
+    want = (1, 1) if cuda else (0, 0)
+    if any(tuple(c["launches"]) != want for c in pair):
+        problems.append(f"set adasum: launches "
+                        f"{[c['launches'] for c in pair]}, want {want}")
+    if problems:
+        raise AssertionError("phase 10: " + "; ".join(problems))
     return ranks
 
 
@@ -1275,6 +1603,14 @@ def main():
     trained = phase_training(fa, tfm, train)
     adasum_cases = phase_adasum_kernels(ak, dev)
     dp = phase_adasum_training()
+    dp_gather = phase_adasum_training(route="gather", steps=DP_GATHER_STEPS)
+    routes_err = routes_rel_err(dp, dp_gather)
+    log(f"phase 9: step 0's reduced FFN gradient, vhdd against gather: "
+        f"{routes_err}")
+    if routes_err > TOL_COMBINE[torch.float16]:
+        raise AssertionError(f"phase 9: the routes disagree at step 0: "
+                             f"{routes_err}")
+    coll = phase_collectives()
 
     main_case = cases[0]                     # (4, 2048, 32, 128) causal
     bwd_case = bwd_cases[0]                  # (2, 2048, 32, 128) causal
@@ -1342,6 +1678,10 @@ def main():
             "launches": sum(r["launches"][0 if key == "k1" else 1]
                             for r in dp),
             "launches_per_rank_per_step": dp[0]["n_grad_tensors"],
+            "launches_gather_route": sum(
+                r["launches"][0 if key == "k1" else 1] for r in dp_gather),
+            "launches_three_ranks_per_case": coll[0]["adasum"][0][
+                "launches_per_rank"],
             "max_abs_err": ffn[err],
             "ms": ffn[key]["ms"],
             "plain_ms": ffn[key]["plain_ms"],
@@ -1352,7 +1692,13 @@ def main():
             "at_embedding_size": embed[key],
             "card": card,
         })
-    adasum[0].update(cases=adasum_cases, training=dp)
+    for r in dp_gather:
+        r.pop("probe_red", None)
+    for r in dp:
+        r.pop("probe_red", None)
+    adasum[0].update(cases=adasum_cases, training=dp,
+                     training_gather_route=dp_gather,
+                     routes_rel_err=routes_err, three_ranks=coll)
     print(json.dumps({"kernels": [forward, *backward, *adasum]}),
           flush=True)
     print(card_line(), flush=True)

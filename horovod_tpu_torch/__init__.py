@@ -11,11 +11,14 @@ the autograd Function ``ops.flash_attention.FlashAttention``: on the
 card, the hand-written CUDA flash-attention forward and its dK/dV and
 dQ backward kernels. Horovod's data-parallel loop on
 ``torch.distributed``: ``init``, ``broadcast_parameters``, the eager
-collectives (Average, Sum and Adasum on the gather route, whose pair
-combine is the hand-written CUDA kernels K1 and K2 of
-``ops.adasum_kernels``) and ``DistributedOptimizer``. Entry points run on
-the card unless the caller passes ``device="cpu"``, and raise when there
-is no card and no device was given.
+collectives (allreduce with Average, Sum, Min, Max, Product and Adasum,
+allgather, broadcast, alltoall, reducescatter, their grouped forms,
+``allgather_object``, ``barrier``), process sets, and
+``DistributedOptimizer``. Adasum runs on the vhdd route by default and
+on the gather route when asked; its arithmetic on the card is the
+hand-written CUDA kernels K1 and K2 of ``ops.adasum_kernels``. Entry
+points run on the card unless the caller passes ``device="cpu"``, and
+raise when there is no card and no device was given.
 
 The package imports torch and numpy, never jax and nothing of
 horovod_tpu: framework-neutral modules (config, logging, metrics,
@@ -24,8 +27,9 @@ reference by the tests.
 """
 
 from .common.basics import (  # noqa: F401
-    backend, init, is_initialized, local_rank, local_size, rank, shutdown,
-    size,
+    add_process_set, backend, global_process_set, init, is_initialized,
+    local_rank, local_size, process_set_included, rank, remove_process_set,
+    shutdown, size,
 )
 from .common.exceptions import (  # noqa: F401
     HorovodInternalError, ReplicaDivergenceError,
@@ -35,12 +39,17 @@ from .models.transformer import (  # noqa: F401
     loss_fn, params_from_jax, params_to_jax, vocab_parallel_xent,
 )
 from .ops.collective_ops import (  # noqa: F401
-    Adasum, Average, Sum, allreduce, allreduce_, allreduce_async,
-    allreduce_async_, broadcast, broadcast_, broadcast_async,
-    broadcast_async_, broadcast_object, grouped_allreduce,
-    grouped_allreduce_async, poll, synchronize,
+    Adasum, Average, Max, Min, Product, Sum, allgather, allgather_async,
+    allgather_object, allreduce, allreduce_, allreduce_async,
+    allreduce_async_, alltoall, alltoall_async, barrier, broadcast,
+    broadcast_, broadcast_async, broadcast_async_, broadcast_object,
+    grouped_allgather, grouped_allgather_async, grouped_allreduce,
+    grouped_allreduce_async, grouped_reducescatter,
+    grouped_reducescatter_async, poll, reducescatter, reducescatter_async,
+    synchronize,
 )
 from .ops.compression import Compression  # noqa: F401
+from .ops.process_set import ProcessSet  # noqa: F401
 from .ops.flash_attention import (  # noqa: F401
     FlashAttention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain,

@@ -23,9 +23,17 @@ one: NCCL refuses two ranks on one device). Nothing switches backend
 after a failure. Under gloo the collectives stage CUDA tensors through
 host memory (``ops/collective_ops.py``).
 
-Not ported: the negotiated engine and controller (ROADMAP A.4), added
-process sets, timeline, autotune, metrics server, tracing, journal and
-telemetry wiring.
+``init(process_sets=...)`` registers the given sets after the global
+one, and ``add_process_set``, ``remove_process_set``,
+``process_set_included`` and ``global_process_set`` are the reference's
+(``horovod_tpu/__init__.py:118-138``). Every rank must register the
+same sets in the same order: each set gets its ``torch.distributed``
+group from ``new_group``, a collective over the world
+(``ops/process_set.py``).
+
+Not ported: the negotiated engine and controller (ROADMAP A.4),
+timeline, autotune, metrics server, tracing, journal and telemetry
+wiring.
 """
 
 from __future__ import annotations
@@ -77,15 +85,11 @@ def _group_timeout(cfg: Config) -> datetime.timedelta:
 
 def init(config_overrides: Optional[Dict[str, Any]] = None,
          process_sets: Optional[list] = None) -> None:
-    """Initialize the runtime; idempotent. ``process_sets`` other than
-    the global set are not ported yet and raise NotImplementedError."""
+    """Initialize the runtime; idempotent. ``process_sets``: ProcessSet
+    objects to register after the global set, the same on every rank."""
     with _state._lock:
         if _state.initialized:
             return
-        if process_sets:
-            raise NotImplementedError(
-                "init(process_sets=...): process sets other than the "
-                "global set are not ported yet (ROADMAP A.2)")
         cfg = Config(config_overrides)
         hlog.configure(cfg.log_level, cfg.log_timestamp,
                        cfg.log_rank0_only)
@@ -126,7 +130,17 @@ def init(config_overrides: Optional[Dict[str, Any]] = None,
         hlog.set_rank(topo.rank)
         from ..ops.process_set import ProcessSetTable
         from ..ops.collective_ops import HandleTable
-        _state.process_set_table = ProcessSetTable(topo)
+        table = ProcessSetTable(topo)
+        try:
+            for ps in process_sets or ():
+                table.register(ps)
+        except BaseException:
+            table.close()
+            if owns:
+                dist.destroy_process_group()
+                _state._owns_group = False
+            raise
+        _state.process_set_table = table
         _state.handles = HandleTable()
         _state.initialized = True
         hlog.info("horovod_tpu_torch initialized: rank=%d size=%d "
@@ -143,6 +157,7 @@ def shutdown() -> None:
     with _state._lock:
         if not _state.initialized:
             return
+        _state.process_set_table.close()
         if _state._owns_group and dist.is_initialized():
             dist.destroy_process_group()
         _state._owns_group = False
@@ -195,3 +210,24 @@ def backend() -> Optional[str]:
     """The process group's backend ("nccl" or "gloo"), None in a world
     of one."""
     return _require_init().backend
+
+
+def add_process_set(ranks):
+    """Register a process set after ``init`` on every rank, in the same
+    order everywhere; returns the registered set (an existing one with
+    the same ranks is reused)."""
+    from ..ops.process_set import ProcessSet
+    ps = ranks if isinstance(ranks, ProcessSet) else ProcessSet(ranks)
+    return _require_init().process_set_table.register(ps)
+
+
+def remove_process_set(process_set) -> None:
+    _require_init().process_set_table.remove(process_set)
+
+
+def process_set_included(process_set_id: int) -> bool:
+    return _require_init().process_set_table.get(process_set_id).included()
+
+
+def global_process_set():
+    return _require_init().process_set_table.global_set

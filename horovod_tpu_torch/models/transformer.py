@@ -350,7 +350,7 @@ def vocab_parallel_xent(cfg: TransformerConfig, logits: torch.Tensor,
         raise NotImplementedError(
             f"vocab_parallel_xent: logits hold {logits.shape[-1]} of "
             f"{cfg.vocab} vocabulary entries; the vocab-sharded (tensor "
-            f"parallel) loss is not ported yet (ROADMAP A.5)")
+            f"parallel) loss is not ported yet (ROADMAP A.9)")
     lf = logits.float()
     tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(lf, dim=-1) - tgt

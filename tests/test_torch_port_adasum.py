@@ -213,24 +213,29 @@ class _Pair(ProcessSet):
     """A two-rank set whose gather hands back two given rows, so the
     route can be read without a process group."""
 
+    def rank(self):
+        return 0
+
 
 def _route(monkeypatch, t):
-    """'vhdd' when adasum_allreduce refuses the vhdd route, else the
-    branch the gather fold took ('kernel' or 'plain')."""
+    """'vhdd' when adasum_allreduce enters the vhdd route (``vhdd``),
+    else the branch the gather fold took ('kernel' or 'plain')."""
     seen = []
 
     def combine(a, b, use_pallas=False, out=None):
         seen.append("kernel" if use_pallas else "plain")
         return a + b
 
+    def vhdd(seg, me, n, wire, use_kernel=False):
+        seen.append("vhdd")
+        return seg
+
     monkeypatch.setattr(tadasum, "gather_rows", lambda flat, pset: [flat,
                                                                    flat])
     monkeypatch.setattr(tadasum, "_pair_combine", combine)
-    try:
-        tadasum.adasum_allreduce([t], _Pair([0, 1]))
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e)
-        return "vhdd"
+    monkeypatch.setattr(tadasum, "vhdd", vhdd)
+    monkeypatch.setattr(tadasum, "_DistWire", lambda pset: None)
+    tadasum.adasum_allreduce([t], _Pair([0, 1]))
     return seen[0]
 
 

@@ -682,3 +682,82 @@ def test_two_rank_gloo_adasum_fold_on_the_card(card, tmp_path):
     ref = ak.adasum_pair_combine_plain(*xs).float().cpu()
     assert chip_smoke.rel_err(torch.from_numpy(out0), ref) <= \
         chip_smoke.TOL_COMBINE[torch.float16]
+
+
+def _gloo_vhdd_rank(rank, store, results, size, dtypes):
+    """One rank of a gloo world on the card under default knobs: each
+    dtype's vhdd Adasum (K1/K2) and, on the same CUDA tensors, the
+    schedule's plain branch."""
+    import datetime
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import adasum as adasum_mod
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=size,
+                                timeout=datetime.timedelta(seconds=60))
+        hvd.init()
+        out = {}
+        for i, dtype in enumerate(dtypes):
+            x = chip_smoke.coll_contribution(torch.device("cuda", 0),
+                                             (2 ** 20 + 7,), dtype, i, rank)
+            ak.launches_partials = ak.launches_scaled_add = 0
+            got = hvd.allreduce(x, op=hvd.Adasum)
+            launches = (ak.launches_partials, ak.launches_scaled_add)
+            pad = (-x.numel()) % adasum_mod._pow2_blocks(size)[0][1]
+            seg = torch.cat([x, x.new_zeros(pad)])
+            plain = adasum_mod.vhdd(
+                seg, rank, size,
+                adasum_mod._DistWire(hvd.global_process_set()),
+                use_kernel=False)[:x.numel()]
+            # numpy, not tensors: a tensor travels as shared memory that
+            # dies with this process.
+            out[str(dtype)] = (got.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), launches,
+                               (ak.launches_partials,
+                                ak.launches_scaled_add))
+        results.put((rank, "ok", out))
+        hvd.shutdown()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        results.put((rank, "error", traceback.format_exc()))
+
+
+@pytest.mark.parametrize("size", [2, 3])
+def test_gloo_vhdd_kernels_match_the_plain_branch_on_the_card(card, size,
+                                                              tmp_path):
+    """vhdd under default knobs launches K1 and K2 once per halving
+    level and once per merge on each rank (n = 2: one level; n = 3:
+    ranks 0 and 1 a level and the merge, rank 2 the merge), and agrees
+    with the schedule's plain branch on the same tensors within the
+    non-power-of-two fold's two roundings (chip_smoke.TOL_FOLD3); ranks
+    agree bitwise. The plain branch launches nothing."""
+    import multiprocessing as mp
+    dtypes = [torch.float16, torch.bfloat16, torch.float32]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_vhdd_rank,
+                         args=(r, str(tmp_path / "store"), results, size,
+                               dtypes))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict((r, (s, v)) for r, s, v in
+                   (results.get(timeout=180) for _ in range(size)))
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    assert all(s == "ok" for s, _ in got.values()), got
+    want = {2: [(1, 1)] * 2, 3: [(2, 2), (2, 2), (1, 1)]}[size]
+    for dtype in dtypes:
+        outs = [got[r][1][str(dtype)] for r in range(size)]
+        for r, (kern, plain, launches, after) in enumerate(outs):
+            np.testing.assert_array_equal(kern, outs[0][0])
+            assert launches == want[r] and after == launches, (r, launches)
+            assert chip_smoke.rel_err(torch.from_numpy(kern),
+                                      torch.from_numpy(plain)) <= \
+                chip_smoke.TOL_FOLD3[dtype]

@@ -159,7 +159,8 @@ def _rank_main(rank, size, store, results, job, args):
             "gloo", init_method=f"file://{store}", rank=rank,
             world_size=size, timeout=datetime.timedelta(seconds=60))
         hvd.init(config_overrides=args.get("overrides"))
-        payload = JOBS[job](rank, size, args)
+        payload = (JOBS[job] if isinstance(job, str) else job)(rank, size,
+                                                                args)
         payload["loaded"] = sorted({m.split(".")[0] for m in sys.modules}
                                    & set(FORBIDDEN))
         status = "ok"
@@ -173,11 +174,13 @@ def _rank_main(rank, size, store, results, job, args):
 
 
 def spawn_world(size, job, tmp_path, timeout=90.0, **args):
-    """Run ``job`` on ``size`` spawned gloo ranks; their results in rank
-    order. Raises with the children's tracebacks if any failed."""
+    """Run ``job`` (a name in JOBS, or a module-level function of
+    another test module) on ``size`` spawned gloo ranks; their results
+    in rank order. Raises with the children's tracebacks if any
+    failed."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    store = str(tmp_path / f"store-{job}-{size}")
+    store = str(tmp_path / f"store-{getattr(job, '__name__', job)}-{size}")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, size, store, results, job, args))
              for r in range(size)]
@@ -481,11 +484,42 @@ def test_distributed_optimizer_is_a_subclass_of_the_wrapped_class():
         hvd.shutdown()
 
 
-def test_process_sets_other_than_global_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hvd.init(process_sets=[object()])
+def test_process_sets_other_than_global_raise(monkeypatch):
+    """What still raises: PowerSGD (ROADMAP A.8), and the process-set
+    errors of the reference (duplicate ranks, ranks out of range, an
+    unregistered set, a rank outside the set, removing the global set).
+    The gloo worlds of tests/test_torch_port_collectives.py run the
+    sets themselves."""
+    from horovod_tpu_torch.common.topology import Topology
+    from horovod_tpu_torch.ops.process_set import ProcessSetTable
     with pytest.raises(NotImplementedError, match="PowerSGD|ROADMAP"):
         hvd.Compression.powersgd(rank=2)
+    with pytest.raises(ValueError, match="duplicate"):
+        hvd.ProcessSet([0, 0])
+    with pytest.raises(ValueError, match="out of range"):
+        hvd.init(process_sets=[hvd.ProcessSet([0, 1])])
+    assert not hvd.is_initialized()
+    hvd.init(process_sets=[hvd.ProcessSet([0])])
+    try:
+        with pytest.raises(ValueError, match="out of range"):
+            hvd.add_process_set([0, 3])
+        with pytest.raises(ValueError, match="not registered"):
+            hvd.allreduce(torch.ones(2), process_set=hvd.ProcessSet([0]))
+        with pytest.raises(ValueError, match="global"):
+            hvd.remove_process_set(hvd.global_process_set())
+        assert hvd.add_process_set([0]) is hvd.global_process_set()
+        assert hvd.process_set_included(0)
+        table = ProcessSetTable(Topology(rank=1, size=2, local_rank=1,
+                                         local_size=2))
+        outside = table.register(hvd.ProcessSet([0]))
+        monkeypatch.setattr(basics.state(), "process_set_table", table)
+        with pytest.raises(ValueError, match="not a member"):
+            hvd.allreduce(torch.ones(2), process_set=outside)
+        with pytest.raises(ValueError, match="not a member"):
+            hvd.allgather(torch.ones(2), process_set=outside)
+    finally:
+        monkeypatch.undo()
+        hvd.shutdown()
 
 
 def test_children_import_no_jax():

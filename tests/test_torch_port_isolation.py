@@ -166,9 +166,42 @@ def test_every_module_of_the_port_imports_without_jax():
     assert r.stdout.strip() == "[]"
 
 
+def test_running_the_collectives_loads_no_jax():
+    """A world of one runs every collective of the port, the vhdd
+    schedule on a wire of its own and a registered set, and has loaded
+    neither jax nor horovod_tpu."""
+    code = (
+        "import sys, torch\n"
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch.ops import adasum\n"
+        "hvd.init(process_sets=[hvd.ProcessSet([0])])\n"
+        "x = torch.arange(6.0).reshape(3, 2)\n"
+        "for op in (hvd.Sum, hvd.Average, hvd.Min, hvd.Max, hvd.Product,\n"
+        "           hvd.Adasum):\n"
+        "    hvd.allreduce(x, op=op)\n"
+        "hvd.allgather(x); hvd.grouped_allgather([x, x])\n"
+        "hvd.alltoall(x, splits=[3]); hvd.reducescatter(x)\n"
+        "hvd.grouped_reducescatter([x]); hvd.allgather_object(1)\n"
+        "hvd.barrier(); hvd.broadcast_object(1)\n"
+        "class Echo:\n"
+        "    def swap(self, send, partner): return send.clone()\n"
+        "    def partials(self, p): return torch.stack([p, p])\n"
+        "    def merge(self, seg, ra, rb): return seg, seg\n"
+        "adasum.vhdd(torch.ones(4), 0, 2, Echo())\n"
+        "hvd.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 # function copies: (port module, reference module, function) -> the
 # declared replacements that turn the reference's source into the port's.
 DECLARED_FUNCTIONS = {
+    ("ops/adasum.py", "ops/adasum.py", "_pow2_blocks"): [],
     ("ops/adasum.py", "ops/adasum.py", "adasum_reference"): [
         ('"""Pure-numpy model of the tree fold, for tests."""',
          '"""Pure-numpy model of the tree fold, for tests (a copy of the\n'

@@ -183,3 +183,50 @@ def test_phase_9_rehearses_on_the_cpu():
                and r["n_grad_tensors"] == 20 for r in ranks)
     assert ranks[0]["digests"] == ranks[1]["digests"]
     assert len(ranks[0]["steps"]) == chip_smoke.DP_STEPS
+
+
+SMALL_DP = dict(vocab=128, d_model=32, n_layers=2, n_heads=2, n_kv_heads=2,
+                head_dim=16, d_ff=64, max_seq=32)
+
+
+def test_phase_9_routes_agree_on_the_cpu():
+    """Phase 9's vhdd run (default knobs) and its gather-route run
+    (HOROVOD_ADASUM_PALLAS=1, DP_GATHER_STEPS steps) at a small size on
+    gloo and the CPU: each keeps its ranks bitwise equal, and step 0's
+    reduced FFN gradient of one route is within phase 8's fp16
+    tolerance of the other's."""
+    vhdd = chip_smoke.phase_adasum_training(device="cpu", cfg_kw=SMALL_DP,
+                                            seq=32, timeout=90)
+    gather = chip_smoke.phase_adasum_training(
+        device="cpu", cfg_kw=SMALL_DP, seq=32, timeout=90, route="gather",
+        steps=chip_smoke.DP_GATHER_STEPS)
+    assert [r["route"] for r in vhdd + gather] == ["vhdd"] * 2 + \
+        ["gather"] * 2
+    assert len(gather[0]["steps"]) == chip_smoke.DP_GATHER_STEPS
+    assert gather[0]["digests"] == gather[1]["digests"]
+    # The same weights and batches: step 0 starts from the same point.
+    assert gather[0]["digests"][0] == vhdd[0]["digests"][0]
+    assert 0 < chip_smoke.routes_rel_err(vhdd, gather) <= \
+        chip_smoke.TOL_COMBINE[torch.float16]
+
+
+def test_phase_10_rehearses_on_the_cpu():
+    """Phase 10's three ranks at a small size on gloo and the CPU: every
+    collective's check passes where it ran, vhdd's result is within
+    TOL_FOLD3 of the float64 reference and bitwise equal on the three
+    ranks, and the non-member refuses the set (no launches: the CPU
+    runs the plain branch)."""
+    ranks = chip_smoke.phase_collectives(
+        device="cpu", sizes={"adasum": ((64, 48), (40, 33)), "width": 16,
+                             "rows": 10, "pair_adasum": (64, 48)},
+        timeout=120)
+    assert [r["rank"] for r in ranks] == [0, 1, 2]
+    assert len(ranks[0]["adasum"]) == 4
+    assert all(c["rel_err"] <= chip_smoke.TOL_FOLD3[getattr(torch,
+                                                            c["dtype"])]
+               for c in ranks[0]["adasum"])
+    assert ranks[1]["cases"]["set refuses a non-member"]["ok"]
+    assert {"allgather", "alltoall", "reducescatter", "min", "max",
+            "product", "grouped_allgather", "grouped_reducescatter",
+            "allgather_object", "barrier", "set allreduce",
+            "set adasum"} <= set(ranks[0]["cases"])
