@@ -90,17 +90,22 @@ Phases, in order; any failure exits non-zero before the result lines:
    fp16 tolerance of each other.
 10. Three gloo ranks on one card, default knobs (a power-of-two block
    of 2 and a block of 1, then one merge): vhdd Adasum of 4096 x 11008
-   and 32000 x 4096 contributions in float16 and bfloat16 against the
-   float64 ``adasum_reference`` of the same three (relative error of
-   the norm within TOL_FOLD3: two roundings to the dtype), ranks
-   bitwise equal, K1 and K2 launched twice on ranks 0 and 1 and once on
-   rank 2 per call; then allgather with uneven first dims, alltoall with
-   uneven splits, reducescatter with a remainder, Min, Max and Product
-   with prescale and postscale, grouped allgather and reducescatter,
+   and 32000 x 4096 contributions in float16, bfloat16 and float32
+   against the float64 ``adasum_reference`` of the same three (relative
+   error of the norm within TOL_FOLD3: two roundings to the dtype),
+   ranks bitwise equal, K1 and K2 launched twice on ranks 0 and 1 and
+   once on rank 2 per call. The contributions share a common part
+   (``coll_contribution``), so the coefficients sit near 0.6, and the
+   phase fails unless the plain sum and a merge without its projection
+   each land more than COLL_SEPARATION times the tolerance from the
+   reference (both distances are logged beside the limit). Then
+   allgather with uneven first dims, alltoall with uneven splits,
+   reducescatter with a remainder, Min, Max and Product with prescale
+   and postscale, grouped allgather and reducescatter,
    ``allgather_object``, ``barrier``, and a process set {0, 2}
-   (allreduce, and Adasum with one K1 and one K2 launch on each
-   member; rank 1 is refused), each checked against host-computed
-   answers and timed.
+   (allreduce, and Adasum in float16 and float32 within phase 8's
+   tolerance, with one K1 and one K2 launch on each member; rank 1 is
+   refused), each checked against host-computed answers and timed.
 11. A ``{"kernels": [...]}`` line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1321,9 +1326,40 @@ TOL_SUM = 1e-6        # float32 sums, products of 3 rows in another order
 TOL_FOLD3 = {dtype: 2 * tol for dtype, tol in TOL_COMBINE.items()}
 
 
+COLL_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
+# A wrong combine (a plain sum, a merge without its projection) must miss
+# the float64 reference by more than this many times the tolerance.
+COLL_SEPARATION = 10.0
+
+
 def coll_contribution(device, shape, dtype, case, rank):
-    gen = torch.Generator(device=device).manual_seed(1000 * case + rank)
-    return torch.randn(shape, generator=gen, device=device).to(dtype)
+    """Rank ``rank``'s contribution to Adasum case ``case``: a part that
+    every rank shares plus half as much of the rank's own noise. The
+    Adasum coefficients then sit near 0.6; of independent vectors of
+    this size they would be 1 +- 1e-4, and the sum would pass for
+    Adasum."""
+    def draw(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=device)
+    return (draw(1000 * case + 999) + 0.5 * draw(1000 * case + rank)
+            ).to(dtype)
+
+
+def _norm_rel(got, ref):
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def adasum_gaps(contributions, ref):
+    """How far two wrong combines land from the float64 Adasum ``ref``
+    of ``contributions`` (float64 numpy vectors): the plain sum and,
+    past two members, the fold whose last merge adds without its
+    projection."""
+    gaps = {"plain_sum_gap": _norm_rel(sum(contributions), ref)}
+    if len(contributions) > 2:
+        from horovod_tpu_torch.ops.adasum import adasum_reference
+        gaps["unprojected_merge_gap"] = _norm_rel(
+            adasum_reference(contributions[:-1]) + contributions[-1], ref)
+    return gaps
 
 
 def _host_rows(rank, rows, width, seed, dtype=torch.float32):
@@ -1368,7 +1404,7 @@ def coll_rank_main(rank, port, results, device, sizes):
         adasum = []
         case = 0
         for shape in sizes["adasum"]:
-            for dtype in (torch.float16, torch.bfloat16):
+            for dtype in COLL_DTYPES:
                 x = coll_contribution(device, shape, dtype, case, rank)
                 ak.launches_partials = ak.launches_scaled_add = 0
                 name = f"adasum {shape} {str(dtype)[6:]}"
@@ -1462,21 +1498,28 @@ def coll_rank_main(rank, port, results, device, sizes):
             err = rel_err(got.double().cpu(), px[0].double()
                           + px[1].double())
             check("set allreduce", err <= TOL_SUM, err)
-            ax = [coll_contribution(device, sizes["pair_adasum"],
-                                    torch.float16, 99, r) for r in (0, 2)]
-            ak.launches_partials = ak.launches_scaled_add = 0
-            got = timed("set adasum", lambda: hvd.allreduce(
-                ax[pair.rank()], op=hvd.Adasum, process_set=pair))
             from horovod_tpu_torch.ops.adasum import adasum_reference
-            ref = adasum_reference([a.double().cpu().numpy().reshape(-1)
-                                    for a in ax])
-            err = float(np.linalg.norm(got.double().cpu().numpy()
-                                       .reshape(-1) - ref)
-                        / np.linalg.norm(ref))
-            check("set adasum", err <= TOL_COMBINE[torch.float16], err)
-            cases["set adasum"].update(
-                launches=(ak.launches_partials, ak.launches_scaled_add),
-                digest=_digest(got))
+            # Two members: one halving level, one rounding to the dtype
+            # (phase 8's tolerance).
+            for case, dtype in ((99, torch.float16), (98, torch.float32)):
+                name = f"set adasum {str(dtype)[6:]}"
+                ax = [coll_contribution(device, sizes["pair_adasum"],
+                                        dtype, case, r).double().cpu()
+                      .numpy().reshape(-1) for r in (0, 2)]
+                x = coll_contribution(device, sizes["pair_adasum"], dtype,
+                                      case, rank)
+                ak.launches_partials = ak.launches_scaled_add = 0
+                got = timed(name, lambda: hvd.allreduce(
+                    x, op=hvd.Adasum, process_set=pair))
+                launches = (ak.launches_partials, ak.launches_scaled_add)
+                ref = adasum_reference(ax)
+                err = _norm_rel(got.double().cpu().numpy().reshape(-1), ref)
+                gaps = adasum_gaps(ax, ref)
+                check(name, err <= TOL_COMBINE[dtype] and min(gaps.values())
+                      > COLL_SEPARATION * TOL_COMBINE[dtype], err)
+                cases[name].update(launches=launches, digest=_digest(got),
+                                   limit=TOL_COMBINE[dtype], **gaps)
+                del ax, x, got, ref
         else:
             try:
                 hvd.allreduce(torch.ones(2, device=dev), process_set=pair)
@@ -1513,11 +1556,13 @@ def phase_collectives(device="cuda:0", sizes=None, timeout=900.0):
         contributions = [coll_contribution(device, tuple(res["shape"]),
                                            dtype, res["case"], r)
                          for r in range(COLL_RANKS)]
-        ref = adasum_mod.adasum_reference(
-            [c.double().cpu().numpy().reshape(-1) for c in contributions])
+        contributions = [c.double().cpu().numpy().reshape(-1)
+                         for c in contributions]
+        ref = adasum_mod.adasum_reference(contributions)
         got = torch.from_numpy(res.pop("bits")).view(dtype)
-        res["rel_err"] = float(np.linalg.norm(
-            got.double().numpy().reshape(-1) - ref) / np.linalg.norm(ref))
+        res["rel_err"] = _norm_rel(got.double().numpy().reshape(-1), ref)
+        res["limit"] = TOL_FOLD3[dtype]
+        res.update(adasum_gaps(contributions, ref))
         res["ms_per_rank"] = [r["adasum"][i]["ms"] for r in ranks]
         res["launches_per_rank"] = [r["adasum"][i]["launches"]
                                     for r in ranks]
@@ -1532,6 +1577,11 @@ def phase_collectives(device="cuda:0", sizes=None, timeout=900.0):
         if res["rel_err"] > TOL_FOLD3[dtype]:
             problems.append(f"adasum case {i}: error {res['rel_err']} "
                             f"against the float64 reference")
+        gap = min(res["plain_sum_gap"], res["unprojected_merge_gap"])
+        if gap <= COLL_SEPARATION * TOL_FOLD3[dtype]:
+            problems.append(f"adasum case {i}: a wrong combine lands "
+                            f"{gap} from the reference, too close to "
+                            f"tell at {TOL_FOLD3[dtype]}")
         del contributions, ref, got
     for r in ranks:
         log(f"phase 10: rank {r['rank']} " + json.dumps(
@@ -1540,13 +1590,14 @@ def phase_collectives(device="cuda:0", sizes=None, timeout=900.0):
         for name, case in r["cases"].items():
             if not case["ok"]:
                 problems.append(f"rank {r['rank']}: {name} {case}")
-    pair = [ranks[0]["cases"]["set adasum"], ranks[2]["cases"]["set adasum"]]
-    if pair[0]["digest"] != pair[1]["digest"]:
-        problems.append("set adasum: ranks 0 and 2 differ")
     want = (1, 1) if cuda else (0, 0)
-    if any(tuple(c["launches"]) != want for c in pair):
-        problems.append(f"set adasum: launches "
-                        f"{[c['launches'] for c in pair]}, want {want}")
+    for name in ("set adasum float16", "set adasum float32"):
+        pair = [ranks[0]["cases"][name], ranks[2]["cases"][name]]
+        if pair[0]["digest"] != pair[1]["digest"]:
+            problems.append(f"{name}: ranks 0 and 2 differ")
+        if any(tuple(c["launches"]) != want for c in pair):
+            problems.append(f"{name}: launches "
+                            f"{[c['launches'] for c in pair]}, want {want}")
     if problems:
         raise AssertionError("phase 10: " + "; ".join(problems))
     return ranks

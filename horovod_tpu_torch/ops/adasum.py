@@ -67,7 +67,7 @@ import torch.distributed as dist
 from ..common import config as _config
 from . import adasum_kernels
 from .adasum_kernels import adasum_coeffs as _adasum_coeffs
-from .process_set import ProcessSet
+from .process_set import ProcessSet, need_suffix_groups
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -198,6 +198,16 @@ def _pow2_blocks(n: int):
     return blocks
 
 
+def _merge_starts(n: int) -> List[int]:
+    """Set indices at which vhdd's merges over a set of ``n`` members
+    start: every power-of-two block of ``n`` but the last (each merge
+    reduces over the members from its left block on)."""
+    return [start for start, _ in _pow2_blocks(n)[:-1]]
+
+
+need_suffix_groups(_merge_starts)
+
+
 def _partial_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(a.b, |a|^2, |b|^2)`` as a (3,) float32 tensor: the sums in
     float32, float64 inputs in float64 (the reference's l.250)."""
@@ -318,7 +328,7 @@ class _DistWire:
         if me in (ra, rb):
             both[0 if me == ra else 1] = seg
         host = self._host(both)
-        dist.all_reduce(host, group=self.pset.union_group(ra))
+        dist.all_reduce(host, group=self.pset.suffix_group(ra))
         both = host.to(seg.device)
         return both[0], both[1]
 

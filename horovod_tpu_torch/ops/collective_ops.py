@@ -51,7 +51,6 @@ ValueError.
 from __future__ import annotations
 
 import itertools
-import pickle
 import threading
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -356,22 +355,12 @@ def broadcast_object(obj, root_rank: int = 0, name=None,
 
 def allgather_object(obj, name=None, process_set=None) -> list:
     """One picklable object per member; every member gets the list in
-    member order (the reference's ``optim/functions.py:121``: each
-    member's pickle, length-prefixed, rides one uneven allgather)."""
+    member order (the reference's ``optim/functions.py:121``)."""
     pset = _pset(process_set)
     if pset.size == 1:
         return [obj]
-    payload = pickle.dumps(obj)
-    framed = len(payload).to_bytes(8, "big") + payload
-    data = torch.frombuffer(bytearray(framed), dtype=torch.uint8)
-    blob = bytes(_allgather(data.to(_control_device()), pset)
-                 .cpu().numpy().tobytes())
-    out, off = [], 0
-    for _ in range(pset.size):
-        n = int.from_bytes(blob[off:off + 8], "big")
-        off += 8
-        out.append(pickle.loads(blob[off:off + n]))
-        off += n
+    out = [None] * pset.size
+    dist.all_gather_object(out, obj, group=pset.group)
     return out
 
 

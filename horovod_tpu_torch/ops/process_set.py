@@ -8,8 +8,9 @@ registered is reused, ranks out of range raise), ``remove`` (l.149: the
 global set cannot be removed), ``get`` and ``ids``. Where the reference
 gives each set a JAX mesh, each set here owns the ``torch.distributed``
 group its collectives run over (``group``; None for the global set: the
-default group) and the groups of the unions that Adasum's vhdd merges
-reduce over (``union_group``, ``ops/adasum.py``).
+default group) and the groups of the suffixes of its members that a
+collective declared it needs (``need_suffix_groups``,
+``suffix_group``; Adasum's vhdd merges reduce over such suffixes).
 
 Declared difference: the reference registers a set without a
 collective (``horovod_tpu/__init__.py:118-125``). Here registration
@@ -24,7 +25,7 @@ collective.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch.distributed as dist
 
@@ -39,7 +40,7 @@ class ProcessSet:
         self.ranks: List[int] = sorted(ranks)
         self.process_set_id: Optional[int] = None
         self.group = None               # torch.distributed group; None = default
-        self._unions: Dict[int, object] = {}
+        self._suffixes: Dict[int, object] = {}
         self._table: Optional["ProcessSetTable"] = None
 
     @property
@@ -60,20 +61,26 @@ class ProcessSet:
             raise RuntimeError("process set is not registered")
         return self._table.topology.rank in self.ranks
 
-    def union_group(self, start: int):
+    def suffix_group(self, start: int):
         """The group of the set's members from set index ``start`` on
-        (``start`` 0 is the set's own group)."""
-        return self.group if start == 0 else self._unions[start]
+        (``start`` 0 is the set's own group); the start must have been
+        declared through ``need_suffix_groups``."""
+        return self.group if start == 0 else self._suffixes[start]
 
     def __repr__(self) -> str:
         return f"ProcessSet(id={self.process_set_id}, ranks={self.ranks})"
 
 
-def _merge_starts(n: int) -> List[int]:
-    """Set indices at which Adasum's vhdd merges over a set of ``n``
-    start: every power-of-two block of ``n`` but the last."""
-    from .adasum import _pow2_blocks
-    return [start for start, _ in _pow2_blocks(n)[:-1]]
+_SUFFIX_STARTS: List[Callable[[int], Iterable[int]]] = []
+
+
+def need_suffix_groups(starts: Callable[[int], Iterable[int]]) -> None:
+    """Declare that a collective reduces over suffixes of a set's
+    members: ``starts(n)`` gives, for a set of ``n`` members, the set
+    indices its suffixes start at. Declared at import, before any set
+    is registered; every set registered after gets those groups."""
+    if starts not in _SUFFIX_STARTS:
+        _SUFFIX_STARTS.append(starts)
 
 
 class ProcessSetTable:
@@ -98,9 +105,9 @@ class ProcessSetTable:
             return
         if not is_global:
             ps.group = dist.new_group(ps.ranks)
-        for start in _merge_starts(ps.size):
-            if start:
-                ps._unions[start] = dist.new_group(ps.ranks[start:])
+        starts = {s for fn in _SUFFIX_STARTS for s in fn(ps.size)} - {0}
+        for start in sorted(starts):
+            ps._suffixes[start] = dist.new_group(ps.ranks[start:])
 
     def register(self, ps: ProcessSet) -> ProcessSet:
         with self._lock:
@@ -124,8 +131,8 @@ class ProcessSetTable:
             if ps.process_set_id == 0:
                 raise ValueError("cannot remove the global process set")
             if self._by_id.pop(ps.process_set_id, None) is not None:
-                _destroy([ps.group, *ps._unions.values()])
-                ps.group, ps._unions = None, {}
+                _destroy([ps.group, *ps._suffixes.values()])
+                ps.group, ps._suffixes = None, {}
             ps.process_set_id = None
 
     def get(self, process_set_id: int) -> ProcessSet:
@@ -141,7 +148,7 @@ class ProcessSetTable:
         with self._lock:
             for ps in self._by_id.values():
                 _destroy([ps.group if ps.process_set_id else None,
-                          *ps._unions.values()])
+                          *ps._suffixes.values()])
 
 
 def _destroy(groups) -> None:

@@ -39,6 +39,7 @@ import chip_smoke
 from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import adasum_kernels as ak
+from horovod_tpu_torch.ops.adasum import adasum_reference
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import ring_attention as ra
 from horovod_tpu_torch.parallel import train
@@ -730,9 +731,12 @@ def test_gloo_vhdd_kernels_match_the_plain_branch_on_the_card(card, size,
     """vhdd under default knobs launches K1 and K2 once per halving
     level and once per merge on each rank (n = 2: one level; n = 3:
     ranks 0 and 1 a level and the merge, rank 2 the merge), and agrees
-    with the schedule's plain branch on the same tensors within the
-    non-power-of-two fold's two roundings (chip_smoke.TOL_FOLD3); ranks
-    agree bitwise. The plain branch launches nothing."""
+    with the schedule's plain branch on the same tensors and with the
+    float64 ``adasum_reference`` within the non-power-of-two fold's two
+    roundings (chip_smoke.TOL_FOLD3); ranks agree bitwise. The
+    contributions share a part (``chip_smoke.coll_contribution``), so a
+    plain sum misses the reference by more than COLL_SEPARATION times
+    that tolerance. The plain branch launches nothing."""
     import multiprocessing as mp
     dtypes = [torch.float16, torch.bfloat16, torch.float32]
     ctx = mp.get_context("spawn")
@@ -761,3 +765,12 @@ def test_gloo_vhdd_kernels_match_the_plain_branch_on_the_card(card, size,
             assert chip_smoke.rel_err(torch.from_numpy(kern),
                                       torch.from_numpy(plain)) <= \
                 chip_smoke.TOL_FOLD3[dtype]
+        xs = [chip_smoke.coll_contribution(card, (2 ** 20 + 7,), dtype,
+                                           dtypes.index(dtype), r)
+              .double().cpu().numpy() for r in range(size)]
+        ref = adasum_reference(xs)
+        tol = chip_smoke.TOL_FOLD3[dtype]
+        assert chip_smoke._norm_rel(outs[0][0].astype(np.float64),
+                                    ref) <= tol
+        assert chip_smoke.adasum_gaps(xs, ref)["plain_sum_gap"] > \
+            chip_smoke.COLL_SEPARATION * tol

@@ -214,19 +214,23 @@ def test_phase_10_rehearses_on_the_cpu():
     """Phase 10's three ranks at a small size on gloo and the CPU: every
     collective's check passes where it ran, vhdd's result is within
     TOL_FOLD3 of the float64 reference and bitwise equal on the three
-    ranks, and the non-member refuses the set (no launches: the CPU
-    runs the plain branch)."""
+    ranks, a plain sum or an unprojected merge would miss it by more
+    than COLL_SEPARATION times that, and the non-member refuses the set
+    (no launches: the CPU runs the plain branch)."""
     ranks = chip_smoke.phase_collectives(
         device="cpu", sizes={"adasum": ((64, 48), (40, 33)), "width": 16,
                              "rows": 10, "pair_adasum": (64, 48)},
         timeout=120)
     assert [r["rank"] for r in ranks] == [0, 1, 2]
-    assert len(ranks[0]["adasum"]) == 4
-    assert all(c["rel_err"] <= chip_smoke.TOL_FOLD3[getattr(torch,
-                                                            c["dtype"])]
-               for c in ranks[0]["adasum"])
+    assert len(ranks[0]["adasum"]) == 6
+    for c in ranks[0]["adasum"]:
+        tol = chip_smoke.TOL_FOLD3[getattr(torch, c["dtype"])]
+        assert c["rel_err"] <= tol
+        assert min(c["plain_sum_gap"], c["unprojected_merge_gap"]) > \
+            chip_smoke.COLL_SEPARATION * tol
     assert ranks[1]["cases"]["set refuses a non-member"]["ok"]
     assert {"allgather", "alltoall", "reducescatter", "min", "max",
             "product", "grouped_allgather", "grouped_reducescatter",
             "allgather_object", "barrier", "set allreduce",
-            "set adasum"} <= set(ranks[0]["cases"])
+            "set adasum float16", "set adasum float32"} <= set(
+                ranks[0]["cases"])
