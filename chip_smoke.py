@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of horovod_tpu_torch on one NVIDIA card: builds the port's
 CUDA kernels from this checkout and drives its serving, training,
-Adasum data-parallel and collective paths.
+Adasum data-parallel, collective and data-parallel train-step paths.
 
     python3 chip_smoke.py
 
@@ -106,7 +106,35 @@ Phases, in order; any failure exits non-zero before the result lines:
    (allreduce, and Adasum in float16 and float32 within phase 8's
    tolerance, with one K1 and one K2 launch on each member; rank 1 is
    refused), each checked against host-computed answers and timed.
-11. A ``{"kernels": [...]}`` line, the card line, then the last line
+11. The data-parallel train step (``parallel/train.py`` on
+   ``data_parallel_mesh()``), Llama-2-7B width, 2 layers, bf16. A world
+   of one in a spawned process that adopts a one-rank NCCL group: 2
+   steps (B = 2, L = 2048) with the mesh and 2 without, from the same
+   weights; gates: 0 buckets and bitwise equal parameters. Then two
+   ranks sharing the card on gloo (as phase 9), B = 1, L = 2048 per
+   rank, each on its own batch, HOROVOD_NUMERICS_GUARD=1,
+   ``guard_non_finite(adamw(3e-4))``, overlap on, the default 64 MiB
+   threshold, 3 steps. Gates: the plan is DPS_PLAN's 13 buckets on both
+   ranks; finite losses, equal across ranks; parameters bitwise equal
+   across ranks after every step and ``check_replica_divergence``
+   passes; K3 launched 2 x 3 times per kernel per rank; the probe shows
+   13 ready events per step in plan order (one per wire group: one per
+   bucket here) and 13 reduced events, each after its ready (gloo's
+   worker threads complete them in their own order). Per step, on the
+   host clock from hooks outside the step (``_StepClock``): forward +
+   backward, the exchange after it up to AdamW and of that the bucket
+   waits (to the probe's last reduced event), the exchange inside the
+   backward (forward + backward less that of the overlap-off step),
+   the share of the buckets' reduction time before the backward's end
+   and that of the last bucket, AdamW, peak memory. Then: a step where
+   rank 1's loss is NaN (both ranks
+   skip; parameters and AdamW state unchanged bitwise, one consecutive
+   skip) and a clean step that applies; a bit flipped on rank 1, which
+   the divergence check names on both ranks as an AMBIGUOUS 1-vs-1
+   split; and from the saved start, the overlap-off step (bitwise equal
+   to the bucketed step 0) and the fp16 wire (each reduced gradient
+   within TOL_FP16_WIRE of the uncompressed step's; its wire bytes).
+12. A ``{"kernels": [...]}`` line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Forward tolerances, on the worst row's relative error (``row_rel_err``:
@@ -1603,6 +1631,402 @@ def phase_collectives(device="cuda:0", sizes=None, timeout=900.0):
     return ranks
 
 
+# Phase 11: the data-parallel train step (parallel/train.py) on the card.
+DPS_WORLD1_BATCH = 2
+DPS_WORLD1_STEPS = 2
+DPS_STEPS = 3
+# The plan of the flagship at Llama-2-7B width, 2 layers, the default
+# 64 MiB threshold: leaf indices (registration order) and bytes per
+# bucket, last-produced first.
+DPS_PLAN = ("19:90177536;18:90177536;17:90177536;16,15:67108864;"
+            "14,13:67108864;12,11:32768;10:90177536;9:90177536;"
+            "8:90177536;7,6:67108864;5,4:67108864;3,2,1:49152;"
+            "0:262144000")
+# An fp16 wire against the uncompressed step's reduced gradients, the
+# Frobenius norm of the error over that of the gradient per tensor: a
+# bf16 gradient is exact in fp16 at or above 2^-14 (fp16's smallest
+# normal), so the sum's fp16 rounding before the bf16 one and the
+# absolute 6e-8 that fp16 keeps below 2^-14 move it, by about one bf16
+# rounding (2^-8; 6.3e-4 at the flagship, PERF.md); a float32 one rounds
+# to fp16 on each rank and in the sum, three roundings of 2^-11.
+TOL_FP16_WIRE = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -9}
+
+
+def dps_batch(cfg, seq, rank, step, batch=1, scale=1.0):
+    """Rank ``rank``'s own batch of ``step`` on the host, with the loss
+    scale the guard check sets to NaN."""
+    tokens = np.random.RandomState(1000 * step + rank).randint(
+        0, cfg.vocab, (batch, seq)).astype(np.int64)
+    return {"tokens": torch.from_numpy(tokens),
+            "targets": torch.from_numpy(np.roll(tokens, -1, axis=1)),
+            "scale": torch.tensor(scale, dtype=torch.float32)}
+
+
+def dps_world1_main(rank, port, results, device, cfg_kw, seq, steps):
+    """Phase 11's world of one, in a spawned process: the port adopts a
+    one-rank group (NCCL on the card), and ``DPS_WORLD1_STEPS`` steps
+    with ``mesh=data_parallel_mesh()`` against the same steps without a
+    mesh, from the same weights."""
+    import torch.distributed as dist
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
+    try:
+        if cuda:
+            torch.cuda.set_device(torch.device(device))
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+        sys.path.insert(0, REPO)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.models import transformer as tfm
+        from horovod_tpu_torch.parallel import mesh as mesh_mod
+        from horovod_tpu_torch.parallel import train
+        hvd.init()
+        cfg = tfm.TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
+        runs = {}
+        for name, mesh in (("mesh", mesh_mod.data_parallel_mesh()),
+                           ("no mesh", None)):
+            model = tfm.init_params(cfg, seed=0, device=device)
+            step = train.build_train_step(
+                lambda m, b: tfm.loss_fn(cfg, m, b),
+                train.adamw(model.parameters(), LR), device, mesh=mesh,
+                overlap=True)
+            losses, times = [], []
+            for s in range(steps):
+                batch = dps_batch(cfg, seq, 0, s, DPS_WORLD1_BATCH)
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.monotonic()
+                losses.append(float(step(model, batch)["loss"]))
+                times.append(1e3 * (time.monotonic() - t0))
+            runs[name] = {"losses": losses, "step_ms": times,
+                          "buckets": train.last_overlap_info()["buckets"],
+                          "digest": _params_digest(model),
+                          "mesh_shape": None if mesh is None
+                          else mesh.shape}
+            del model, step
+            if cuda:
+                torch.cuda.empty_cache()
+        payload = {"backend": hvd.backend(), "runs": runs}
+        status = "ok"
+        hvd.shutdown()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        payload = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        results.put((rank, status, payload))
+
+
+class _StepClock:
+    """Host-clock stamps of one data-parallel step, from hooks a user
+    could add, with no change to the step: a post-accumulate-grad hook
+    on the tied embedding, the last parameter the backward finishes
+    (registered before the step registers its own, so it fires first),
+    stamps the backward's end; the optimizer's step pre- and post-hooks
+    bracket AdamW. Each stamp synchronises the card first. Under gloo
+    with card tensors that moves no work: right after the first stamp
+    the last bucket's launch copies it to the host, which waits for the
+    card, and before AdamW the guard's finite check waits for it too."""
+
+    def __init__(self, cuda, model):
+        self.cuda = cuda
+        self.reset()
+        model.embed.register_post_accumulate_grad_hook(
+            lambda _p: self._stamp("backward_end"))
+
+    def watch(self, optimizer):
+        optimizer.register_step_pre_hook(
+            lambda *_: self._stamp("adamw_start"))
+        optimizer.register_step_post_hook(
+            lambda *_: self._stamp("adamw_end"))
+
+    def reset(self):
+        self.t = {}
+
+    def sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def _stamp(self, name):
+        self.sync()
+        self.t[name] = time.monotonic()
+
+    def parts(self, t0, events):
+        """The step's parts in ms from its start ``t0`` and the probe's
+        (ns, bucket, phase, bytes) events."""
+        t = self.t
+        last_reduced = max((e[0] for e in events if e[2] == "reduced"),
+                           default=None)
+        return {
+            "forward_backward_ms": 1e3 * (t["backward_end"] - t0),
+            "exchange_after_backward_ms":
+                1e3 * (t["adamw_start"] - t["backward_end"]),
+            "bucket_waits_ms": None if last_reduced is None else max(
+                0.0, 1e-6 * last_reduced - 1e3 * t["backward_end"]),
+            "adamw_ms": 1e3 * (t["adamw_end"] - t["adamw_start"])}
+
+
+def _overlap_of(events, n_buckets, backward_end):
+    """Per step from the probe's (ns, bucket, phase, bytes) events: the
+    ready order, the buckets reduced, whether each reduced after its
+    ready, the share of bucket time [ready, reduced] before the
+    backward's end, and that share for the last bucket."""
+    ready = {b: t for t, b, ph, _ in events if ph == "ready"}
+    reduced = {b: t for t, b, ph, _ in events if ph == "reduced"}
+    end_ns = int(backward_end * 1e9)
+    spans = {b: (ready[b], reduced[b]) for b in ready if b in reduced}
+    hidden = {b: max(0, min(r1, end_ns) - r0) for b, (r0, r1)
+              in spans.items()}
+    total = sum(r1 - r0 for r0, r1 in spans.values())
+    last = n_buckets - 1
+    return {
+        "ready_order": [b for _, b, ph, _ in events if ph == "ready"],
+        "reduced_order": [b for _, b, ph, _ in events if ph == "reduced"],
+        "reduced_after_ready": all(r1 >= r0 for r0, r1 in spans.values()),
+        "n_ready": len([e for e in events if e[2] == "ready"]),
+        "n_reduced": len([e for e in events if e[2] == "reduced"]),
+        "hidden_share": (sum(hidden.values()) / total) if total else None,
+        "last_bucket_hidden": (hidden[last] / max(1, spans[last][1]
+                                                  - spans[last][0]))
+        if last in spans else None,
+        "last_bucket_ms_after_backward": (
+            1e-6 * max(0, spans[last][1] - end_ns)) if last in spans
+        else None}
+
+
+def _state_digest(model, optimizer):
+    """sha256 of the parameters and the AdamW state (step, moments)."""
+    import hashlib
+    h = hashlib.sha256(_params_digest(model).encode())
+    for p in model.parameters():
+        for key, t in sorted(optimizer.state.get(p, {}).items()):
+            h.update(key.encode())
+            h.update(t.detach().reshape(-1).contiguous()
+                     .view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def _flip_one_bit(t):
+    """One flipped bit in the middle of ``t``'s bytes, in place (a
+    simulated silent data corruption)."""
+    with torch.no_grad():
+        raw = t.view(-1).view(torch.uint8)
+        raw[raw.numel() // 2] ^= 0x10
+
+
+def dps_rank_main(rank, port, results, device, cfg_kw, seq, steps):
+    """One rank of phase 11's two-rank world, in a spawned process: the
+    guarded, bucketed step (HOROVOD_NUMERICS_GUARD=1, overlap on, the
+    default 64 MiB threshold) for ``steps`` steps, timed in parts, then
+    the divergence check, the guard's coordinated skip, a flipped bit,
+    and from the saved start the overlap-off step and the fp16 wire."""
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
+    try:
+        hvd = _join_world(rank, DP_RANKS, port, device,
+                          {"HOROVOD_NUMERICS_GUARD": "1"})
+        from horovod_tpu_torch import numerics, tracing
+        from horovod_tpu_torch.models import transformer as tfm
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.parallel import mesh as mesh_mod
+        from horovod_tpu_torch.parallel import train
+        cfg = tfm.TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
+        model = tfm.init_params(cfg, seed=rank, device=device)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        mesh = mesh_mod.data_parallel_mesh()
+
+        def loss(m, b):
+            return tfm.loss_fn(cfg, m, b) * b["scale"]
+
+        def fresh(**kw):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+            opt = numerics.guard_non_finite(
+                train.adamw(model.parameters(), LR))
+            return opt, train.build_train_step(loss, opt, device, mesh=mesh,
+                                               **kw)
+
+        probe = tracing.OverlapProbe()
+        probe.armed = True
+        clock = _StepClock(cuda, model)
+        opt, step = fresh(overlap=True, overlap_probe=probe)
+        clock.watch(opt)
+        reset_counts(fa)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps_out, digests, grads0 = [], [], None
+        for s in range(steps):
+            clock.reset()
+            with probe._lock:
+                probe.events.clear()
+            clock.sync()
+            t0 = time.monotonic()
+            metrics = step(model, dps_batch(cfg, seq, rank, s))
+            clock.sync()
+            t1 = time.monotonic()
+            with probe._lock:
+                events = list(probe.events)
+            info = train.last_overlap_info()
+            steps_out.append({
+                "loss": float(metrics["loss"]),
+                **clock.parts(t0, events),
+                "step_ms": 1e3 * (t1 - t0),
+                **_overlap_of(events, info["buckets"],
+                              clock.t["backward_end"])})
+            digests.append(_params_digest(model))
+            if s == 0:
+                grads0 = {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()}
+        launches = launch_counts(fa)
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        # One probe event of each phase per wire group, in plan order.
+        wire = train.plan_overlap(model, mesh, guard=True).wire
+        events_per_step = [b for b, groups in enumerate(wire)
+                           for _ in groups]
+        numerics.check_replica_divergence(model)       # agreement passes
+        out = {"rank": rank, "backend": hvd.backend(), "plan": info,
+               "steps": steps_out, "digests": digests,
+               "events_per_step": events_per_step,
+               "launches": launches, "max_memory_allocated": peak,
+               "divergence_check_passed": True,
+               "n_parameters": sum(p.numel() for p in model.parameters())}
+        # The guard: rank 1's loss is NaN for one step, then a clean one.
+        before = _state_digest(model, opt)
+        metrics = step(model, dps_batch(cfg, seq, rank, steps,
+                                        scale=float("nan") if rank == 1
+                                        else 1.0))
+        out["guard"] = {"loss": float(metrics["loss"]),
+                        "kept_state": _state_digest(model, opt) == before,
+                        "consecutive_skips": numerics.consecutive_skips(opt)}
+        metrics = step(model, dps_batch(cfg, seq, rank, steps + 1))
+        out["guard"].update(
+            next_loss=float(metrics["loss"]),
+            next_applied=_state_digest(model, opt) != before,
+            next_consecutive_skips=numerics.consecutive_skips(opt),
+            total_skips=opt.total_skips, digest=_params_digest(model))
+        # A flipped bit on rank 1.
+        if rank == 1:
+            _flip_one_bit(model.layers[0].w_down)
+        try:
+            numerics.check_replica_divergence(model)
+            out["divergence"] = {"raised": None}
+        except hvd.ReplicaDivergenceError as e:
+            out["divergence"] = {"raised": type(e).__name__,
+                                 "ranks": list(e.divergent_ranks),
+                                 "text": str(e)}
+        # From the saved start: overlap off, then the fp16 wire.
+        opt, step = fresh(overlap=False)
+        clock.reset()
+        clock.sync()
+        t0 = time.monotonic()
+        step(model, dps_batch(cfg, seq, rank, 0))
+        off_ms = 1e3 * (clock.t["backward_end"] - t0)
+        out["overlap_off_digest"] = _params_digest(model)
+        out["overlap_off_forward_backward_ms"] = off_ms
+        for st in steps_out:
+            st["exchange_in_backward_ms"] = st["forward_backward_ms"] - off_ms
+        opt, step = fresh(overlap=True, compression="fp16")
+        step(model, dps_batch(cfg, seq, rank, 0))
+        info = train.last_overlap_info()
+        errs = {n: rel_err(p.grad, grads0[n])
+                for n, p in model.named_parameters()}
+        out["fp16"] = {
+            "digest": info["digest"],
+            "raw_bucket_bytes": info["raw_bucket_bytes"],
+            "wire_bucket_bytes": info["wire_bucket_bytes"],
+            "rel_err": errs,
+            "within": all(errs[n] <= TOL_FP16_WIRE[p.dtype]
+                          for n, p in model.named_parameters()),
+            "moved": max(errs.values()) > 0}
+        payload = out
+        status = "ok"
+        hvd.shutdown()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        payload = traceback.format_exc()
+    finally:
+        results.put((rank, status, payload))
+
+
+def phase_dp_step(device="cuda:0", cfg_kw=None, seq=SEQ, timeout=900.0,
+                  plan=DPS_PLAN, layers=DP_LAYERS):
+    """Phase 11: the world of one on NCCL, then two ranks sharing the
+    card on gloo; returns both."""
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, n_layers=layers)
+    cuda = device.startswith("cuda")
+    problems = []
+    (w1,) = spawn_ranks(dps_world1_main, 1,
+                        (device, cfg_kw, seq, DPS_WORLD1_STEPS), timeout,
+                        "phase 11 world 1")
+    log("phase 11 world 1: " + json.dumps(w1))
+    if w1["backend"] != ("nccl" if cuda else "gloo"):
+        problems.append(f"world 1: backend {w1['backend']}")
+    if w1["runs"]["mesh"]["buckets"] != 0:
+        problems.append("world 1: buckets in a world of one")
+    if w1["runs"]["mesh"]["digest"] != w1["runs"]["no mesh"]["digest"]:
+        problems.append("world 1: the mesh changed the parameters")
+    ranks = spawn_ranks(dps_rank_main, DP_RANKS,
+                        (device, cfg_kw, seq, DPS_STEPS), timeout,
+                        "phase 11")
+    for r in ranks:
+        log("phase 11: " + json.dumps(
+            {k: v for k, v in r.items() if k not in ("fp16", "plan")}))
+        log(f"phase 11: rank {r['rank']} plan " + json.dumps(r["plan"]))
+        log(f"phase 11: rank {r['rank']} fp16 wire " + json.dumps(r["fp16"]))
+    n_buckets = len(plan.split(";"))
+    if plan == DPS_PLAN and ranks[0]["events_per_step"] != list(
+            range(n_buckets)):
+        problems.append("the flagship's buckets are not one wire group each")
+    if any(r["backend"] != "gloo" for r in ranks):
+        problems.append("the two ranks on one card are not on gloo")
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        if r["plan"]["digest"] != plan or r["plan"]["buckets"] != n_buckets:
+            problems.append(f"{tag}: plan {r['plan']['digest']}")
+        for s, st in enumerate(r["steps"]):
+            if not np.isfinite(st["loss"]):
+                problems.append(f"{tag}: step {s} loss {st['loss']}")
+            if st["ready_order"] != r["events_per_step"] or sorted(
+                    st["reduced_order"]) != r["events_per_step"] or \
+                    not st["reduced_after_ready"]:
+                problems.append(f"{tag}: step {s} probe events "
+                                f"{st['ready_order']} {st['reduced_order']}")
+        want = layers * DPS_STEPS if cuda else 0
+        if r["launches"] != {"fwd": want, "dkv": want, "dq": want}:
+            problems.append(f"{tag}: K3 launches {r['launches']}, want "
+                            f"{want} each")
+        g = r["guard"]
+        if not (g["kept_state"] and g["consecutive_skips"] == 1
+                and np.isnan(g["loss"]) and g["next_applied"]
+                and g["next_consecutive_skips"] == 0
+                and g["total_skips"] == 1 and np.isfinite(g["next_loss"])):
+            problems.append(f"{tag}: guard {g}")
+        d = r["divergence"]
+        if not (d["raised"] == "ReplicaDivergenceError" and d["ranks"] == [1]
+                and "AMBIGUOUS" in d["text"]):
+            problems.append(f"{tag}: divergence check {d}")
+        if r["overlap_off_digest"] != r["digests"][0]:
+            problems.append(f"{tag}: overlap off differs from the bucketed "
+                            f"step 0")
+        if not (r["fp16"]["within"] and r["fp16"]["moved"]):
+            problems.append(f"{tag}: fp16 wire {r['fp16']['rel_err']}")
+    for s in range(DPS_STEPS):
+        if len({r["digests"][s] for r in ranks}) != 1:
+            problems.append(f"parameters differ across ranks after step {s}")
+        if len({r["steps"][s]["loss"] for r in ranks}) != 1:
+            problems.append(f"losses differ across ranks at step {s}")
+    if len({r["guard"]["digest"] for r in ranks}) != 1:
+        problems.append("parameters differ across ranks after the guard")
+    if problems:
+        raise AssertionError("phase 11: " + "; ".join(problems))
+    return {"world1": w1, "ranks": ranks}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1662,6 +2086,9 @@ def main():
         raise AssertionError(f"phase 9: the routes disagree at step 0: "
                              f"{routes_err}")
     coll = phase_collectives()
+    t0 = time.monotonic()
+    dps = phase_dp_step()
+    log(f"phase 11: {time.monotonic() - t0:.1f} s")
 
     main_case = cases[0]                     # (4, 2048, 32, 128) causal
     bwd_case = bwd_cases[0]                  # (2, 2048, 32, 128) causal
@@ -1673,6 +2100,8 @@ def main():
         "replaces": "horovod_tpu/parallel/ring_attention.py:163",
         "launches": trained["launches"]["fwd"],
         "launches_per_step": per_step["fwd"],
+        "launches_dp_step_per_rank": [r["launches"]["fwd"]
+                                      for r in dps["ranks"]],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1699,6 +2128,8 @@ def main():
             "reached_from": "horovod_tpu/parallel/ring_attention.py:163",
             "launches": trained["launches"][key],
             "launches_per_step": per_step[key],
+            "launches_dp_step_per_rank": [r["launches"][key]
+                                          for r in dps["ranks"]],
             "max_abs_err": max(bwd_case["max_abs_err"][o] for o in outs),
             "slice_rel_err": max(bwd_case["slice_rel_err"][o] for o in outs),
             "ms": bwd_case[key]["ms"],
@@ -1711,7 +2142,7 @@ def main():
             "card": card,
         })
     backward[0].update(cases=bwd_cases, training_path_vs_plain=train_path,
-                       training=trained,
+                       training=trained, dp_train_step=dps,
                        function=bwd_case["function"])
     ffn = next(c for c in adasum_cases if c["n"] == 4096 * 11008
                and c["dtype"] == "float16")

@@ -1,7 +1,7 @@
 """horovod_tpu_torch — the PyTorch and CUDA port of horovod_tpu, grown
 slice by slice beside the JAX package, which stays the reference.
 
-Three slices so far. Serving: ``ServingFrontend`` batches requests onto
+Four slices so far. Serving: ``ServingFrontend`` batches requests onto
 padded ladder shapes and runs a two-argument forward on a worker that
 owns one ``torch.device``. Training on one device:
 ``parallel.train.build_train_step`` runs the loss (``models.transformer.
@@ -16,14 +16,19 @@ allgather, broadcast, alltoall, reducescatter, their grouped forms,
 ``allgather_object``, ``barrier``), process sets, and
 ``DistributedOptimizer``. Adasum runs on the vhdd route by default and
 on the gather route when asked; its arithmetic on the card is the
-hand-written CUDA kernels K1 and K2 of ``ops.adasum_kernels``. Entry
+hand-written CUDA kernels K1 and K2 of ``ops.adasum_kernels``. The
+data-parallel train step: ``build_train_step(..., mesh=
+data_parallel_mesh())`` reduces the gradients in buckets inside the
+backward (or in one pass after it), with fp16/bf16 wire casts, the
+numerics guard (``guard_non_finite``) and replica digests
+(``check_replica_divergence``). Entry
 points run on the card unless the caller passes ``device="cpu"``, and
 raise when there is no card and no device was given.
 
 The package imports torch and numpy, never jax and nothing of
 horovod_tpu: framework-neutral modules (config, logging, metrics,
-faults, journal, telemetry, tracing) are copies, pinned against the
-reference by the tests.
+faults, journal, telemetry, tracing, bucketing) are copies, pinned
+against the reference by the tests.
 """
 
 from .common.basics import (  # noqa: F401
@@ -54,10 +59,14 @@ from .ops.flash_attention import (  # noqa: F401
     FlashAttention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain,
 )
+from .numerics import (  # noqa: F401
+    check_replica_divergence, guard_non_finite, params_digest,
+)
 from .optim.distributed_optimizer import DistributedOptimizer  # noqa: F401
 from .optim.functions import (  # noqa: F401
     broadcast_optimizer_state, broadcast_parameters,
 )
+from .parallel.mesh import data_parallel_mesh  # noqa: F401
 from .parallel.ring_attention import attention  # noqa: F401
 from .parallel.train import adamw, build_train_step  # noqa: F401
 from .serving import (  # noqa: F401

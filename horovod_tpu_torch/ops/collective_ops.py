@@ -139,11 +139,33 @@ def _staged(t: torch.Tensor) -> bool:
     return t.is_cuda and _require_init().backend == "gloo"
 
 
+class _PendingReduce:
+    """An allreduce in flight: ``wait()`` returns its result on the
+    input's device; ``future`` completes when the collective has."""
+
+    def __init__(self, work, host: torch.Tensor, device: torch.device):
+        self._work, self._host, self._device = work, host, device
+
+    @property
+    def future(self):
+        return self._work.get_future()
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        return self._host.to(self._device)
+
+
+def _all_reduce_async(flat: torch.Tensor, pset: ProcessSet,
+                      op: int) -> _PendingReduce:
+    host = flat.cpu() if _staged(flat) else flat
+    work = dist.all_reduce(host, op=_REDUCE_OPS[op], group=pset.group,
+                           async_op=True)
+    return _PendingReduce(work, host, flat.device)
+
+
 def _all_reduce(flat: torch.Tensor, pset: ProcessSet,
                 op: int) -> torch.Tensor:
-    host = flat.cpu() if _staged(flat) else flat
-    dist.all_reduce(host, op=_REDUCE_OPS[op], group=pset.group)
-    return host.to(flat.device)
+    return _all_reduce_async(flat, pset, op).wait()
 
 
 def _control_device() -> torch.device:

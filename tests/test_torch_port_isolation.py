@@ -48,6 +48,81 @@ DECLARED = {
         ('f"KNOBS in horovod_tpu/common/config.py")',
          'f"KNOBS in horovod_tpu_torch/common/config.py")'),
     ],
+    "ops/bucketing.py": [
+        ('''\
+"""Shared gradient-bucketing layer: deterministic reverse-order
+packing of pytree leaves into `HOROVOD_FUSION_THRESHOLD`-sized buckets.
+''',
+         '''\
+"""Shared gradient-bucketing layer: deterministic reverse-order
+packing of pytree leaves into `HOROVOD_FUSION_THRESHOLD`-sized buckets.
+
+Port copy (horovod_tpu_torch): byte-identical to the JAX package's
+module but for this paragraph, `leaf_nbytes` and `dtype_name`, which
+size torch tensors, numpy arrays and dtype names ("bfloat16"
+included) without ml_dtypes, `partition_tree`, which flattens a port
+tree instead of importing jax, and `split_by_dtype`, which keys on
+the normalised dtype name, so a torch bucket splits as the
+reference's does (pinned by tests/test_torch_port_isolation.py).
+'''),
+        ('''\
+def leaf_nbytes(leaf: Any) -> int:
+    """Raw payload bytes of one array-like leaf (shape x itemsize;
+    scalars count their itemsize)."""
+    shape = getattr(leaf, "shape", ())
+    size = int(np.prod(shape)) if shape else 1
+    return size * np.dtype(leaf.dtype).itemsize
+''',
+         '''\
+def dtype_name(dtype: Any) -> str:
+    """The numpy-style name of a torch, numpy or jax dtype, or of a
+    dtype name: torch.bfloat16, "torch.bfloat16" and "bfloat16" are
+    all "bfloat16" (the reference's ``str(leaf.dtype)``)."""
+    name = str(dtype)
+    return name[len("torch."):] if name.startswith("torch.") else name
+
+
+def leaf_nbytes(leaf: Any) -> int:
+    """Raw payload bytes of one array-like leaf (shape x itemsize;
+    scalars count their itemsize)."""
+    shape = getattr(leaf, "shape", ())
+    size = int(np.prod(shape)) if shape else 1
+    name = dtype_name(leaf.dtype)
+    return size * (2 if name == "bfloat16" else np.dtype(name).itemsize)
+'''),
+        ('''\
+    """`partition_buckets` over a pytree's flattened leaves (indices
+    refer to `jax.tree_util.tree_leaves(tree)` order)."""
+    import jax
+    return partition_buckets(jax.tree_util.tree_leaves(tree),
+                             threshold_bytes, key_fn)
+''',
+         '''\
+    """`partition_buckets` over a port tree's flattened leaves
+    (indices refer to `tree_leaves(tree)` order)."""
+    return partition_buckets(tree_leaves(tree), threshold_bytes, key_fn)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """A port tree's leaves in `jax.tree_util.tree_leaves` order: an
+    ``nn.Module``'s parameters in registration order, a dict's values
+    by sorted key, a list's or tuple's in order; None is no leaf."""
+    if tree is None:
+        return []
+    if hasattr(tree, "named_parameters"):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+'''),
+        ('''\
+        by_dtype.setdefault(str(getattr(a, "dtype", a)), []).append(i)''',
+         '''\
+        by_dtype.setdefault(dtype_name(getattr(a, "dtype", a)),
+                            []).append(i)'''),
+    ],
     "tracing.py": [
         ("merge, flight recorder, and straggler attribution.\n",
          "merge, flight recorder, and straggler attribution.\n\n"
@@ -152,7 +227,10 @@ def test_every_module_of_the_port_imports_without_jax():
                  "horovod_tpu_torch.ops.process_set",
                  "horovod_tpu_torch.ops._cuda_build",
                  "horovod_tpu_torch.optim.functions",
-                 "horovod_tpu_torch.optim.distributed_optimizer"):
+                 "horovod_tpu_torch.optim.distributed_optimizer",
+                 "horovod_tpu_torch.numerics",
+                 "horovod_tpu_torch.ops.bucketing",
+                 "horovod_tpu_torch.parallel.mesh"):
         assert name in modules, name
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"

@@ -234,3 +234,30 @@ def test_phase_10_rehearses_on_the_cpu():
             "allgather_object", "barrier", "set allreduce",
             "set adasum float16", "set adasum float32"} <= set(
                 ranks[0]["cases"])
+
+
+def test_phase_11_rehearses_on_the_cpu(monkeypatch):
+    """Phase 11 at a small size on gloo and the CPU: the world of one
+    (gloo here, NCCL on the card) has no bucket and the mesh changes
+    nothing; the two ranks follow the plan, stay bitwise equal, skip
+    together on rank 1's NaN, name rank 1's flipped bit, and the
+    overlap-off step and the fp16 wire pass their gates (no launches:
+    the CPU runs the plain versions)."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import mesh as tmesh
+    from horovod_tpu_torch.parallel import train as ttrain
+    model = tfm.Transformer(tfm.TransformerConfig(**SMALL_DP),
+                            torch.device("meta"))
+    plan = ttrain.plan_overlap(model, tmesh.Mesh({"data": 2}),
+                               overlap_threshold=8000, guard=True)
+    assert len(plan.bucket_leaf_indices) > 2
+    monkeypatch.setenv("HOROVOD_FUSION_THRESHOLD", "8000")  # the ranks'
+    res = chip_smoke.phase_dp_step(device="cpu", cfg_kw=SMALL_DP, seq=32,
+                                   timeout=120, plan=plan.digest)
+    assert res["world1"]["backend"] == "gloo"
+    ranks = res["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert ranks[0]["digests"] == ranks[1]["digests"]
+    assert all(r["launches"] == {"fwd": 0, "dkv": 0, "dq": 0}
+               for r in ranks)
+    assert all(r["fp16"]["within"] for r in ranks)

@@ -33,6 +33,7 @@ from horovod_tpu.models import transformer as jtfm
 from horovod_tpu_torch.models import transformer as ttfm
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import ring_attention as tra
+from horovod_tpu_torch.parallel import mesh as tmesh
 from horovod_tpu_torch.parallel import train as ttrain
 
 # The JAX package's parallel/__init__ re-exports build_train_step; the
@@ -224,12 +225,19 @@ def test_train_step_reports_aux_like_jax():
     assert float(metrics["aux"]["moe_aux"]) == 0.0
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"overlap": True},
-                                {"grad_reducer": lambda g: g},
-                                {"compression": "fp16"}])
-def test_train_step_refuses_what_the_nccl_slice_brings(kw):
+@pytest.mark.parametrize("kw,error,match", [
+    ({"compression": "powersgd"}, NotImplementedError, "A.8"),
+    ({"mesh": tmesh.Mesh({"data": 2, "tensor": 2})}, NotImplementedError,
+     "A.9"),
+    ({"compression": "fp16", "overlap": False}, ValueError,
+     "requires the bucketed overlap path"),
+    ({"compression": "powersgd:4"}, NotImplementedError, "A.8")])
+def test_train_step_refuses_what_the_nccl_slice_brings(kw, error, match):
+    """What the data-parallel step still refuses: PowerSGD (ROADMAP
+    A.8), a mesh axis that shards the model (A.9), and a wire cast
+    without the buckets that carry it (the reference's ValueError)."""
     opt = ttrain.adamw([torch.nn.Parameter(torch.zeros(2))], LR)
-    with pytest.raises(NotImplementedError, match="A.3"):
+    with pytest.raises(error, match=match):
         ttrain.build_train_step(lambda m, b: 0, opt, "cpu", **kw)
 
 
