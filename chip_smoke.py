@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of horovod_tpu_torch on one NVIDIA card: builds the port's
-CUDA kernels from this checkout and drives its serving, training,
-Adasum data-parallel, collective and data-parallel train-step paths.
+CUDA kernels and its C++ control core from this checkout and drives its
+serving, training, Adasum data-parallel, collective, data-parallel
+train-step and negotiated-engine paths.
 
     python3 chip_smoke.py
 
@@ -10,9 +11,10 @@ Phases, in order; any failure exits non-zero before the result lines:
 1. Device and build: the card's name and power limit (nvidia-smi), then
    nvcc builds the flash-attention forward and backward libraries and
    the Adasum pair-combine library, one nvcc per source, started
-   together; one line per kernel instantiation with ptxas's registers,
-   static shared memory and spill bytes (and the forward's, the dK/dV
-   kernel's and the dQ kernel's dynamic shared memory per head dim).
+   together, and g++ the negotiation core (``core/cc``) beside them;
+   one line per kernel instantiation with ptxas's registers, static
+   shared memory and spill bytes (and the forward's, the dK/dV kernel's
+   and the dQ kernel's dynamic shared memory per head dim).
 2. Forward kernel vs plain: the kernel against its plain PyTorch version
    at the served shapes (B in 1, 2, 4; L 2048; 32 heads; head dim 128;
    bf16; causal), non-causal, head dim 64, ragged lengths (L = 16, 1000,
@@ -134,7 +136,38 @@ Phases, in order; any failure exits non-zero before the result lines:
    split; and from the saved start, the overlap-off step (bitwise equal
    to the bucketed step 0) and the fp16 wire (each reduced gradient
    within TOL_FP16_WIRE of the uncompressed step's; its wire bytes).
-12. A ``{"kernels": [...]}`` line, the card line, then the last line
+   Phases 9 to 12 run with more than one rank, so their eager
+   collectives go through the negotiated engine (HOROVOD_CONTROLLER
+   "auto"); phase 11's bucketed exchange stays off it.
+12. The negotiated engine, two gloo ranks sharing the card in a group
+   they make themselves (rank 0's control port reaches rank 1 through
+   it), Llama-2-7B width, 2 layers, bf16, HOROVOD_ORDER_CHECK=1:
+   (a) eight named 4096 x 11008 bf16 allreduces with integer values,
+   rank 1 submitting in reverse order: every result exactly its host
+   answer; the same submission inline (at 4096 elements) must miss it
+   (both distances logged beside the limit, 0). (b)
+   DistributedOptimizer(adamw(3e-4), Average), 3 steps, B = 1, L =
+   2048 per rank, each rank on its own batch, the default 64 MiB
+   threshold, from seed 0's weights, then the same steps inline from
+   the same weights: finite losses, ranks bitwise equal after every
+   step, negotiated bitwise equal to inline, K3 launched 2 x 3 times
+   per kernel per rank; per step the host-clock step time, agreed
+   batches and entries per batch, mean negotiation latency, the host
+   time of the agreed batches or inline ops (``hvd_dispatch_latency_
+   seconds``: packing, staging and gloo), AdamW and peak memory. (d)
+   Adasum of two fp16 4096 x 11008 gradients (a shared part plus each
+   rank's noise), usually agreed in one batch (threshold raised to 256
+   MiB), else in two: each within phase 8's fp16 tolerance of the
+   float64 reference, one K1 and one K2 per tensor per rank. (e) A
+   shape mismatch errors both ranks and the next op works;
+   ``check_execution_order`` passes. (c) join: rank 1 joins after 2
+   steps, rank 0 runs a third whose reduced gradients equal its own
+   bitwise (one active rank), a broadcast gets the coordinator's join
+   error, ``join`` returns 0 on both. (f) A world of one adopting a
+   one-rank NCCL group, HOROVOD_CONTROLLER=native: a 16-tensor grouped
+   allreduce of tensors a side stream is still producing, bitwise
+   equal to the inputs and to the inline path.
+13. A ``{"kernels": [...]}`` line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Forward tolerances, on the worst row's relative error (``row_rel_err``:
@@ -170,6 +203,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1224,15 +1258,22 @@ def dp_rank_main(rank, port, results, device, cfg_kw, seq, route, steps):
             loss.backward()
             clock.sync()
             t1 = time.monotonic()
-            opt.step()
+            # With more than one rank the reductions run on the
+            # negotiated engine's thread: wait for them, then step.
+            opt.synchronize()
             clock.sync()
             t2 = time.monotonic()
+            with opt.skip_synchronize():
+                opt.step()
+            clock.sync()
+            t3 = time.monotonic()
             steps_out.append({"loss": float(loss.detach()),
                               "forward_backward_ms": 1e3 * (t1 - t0),
+                              "wait_ms": 1e3 * (t2 - t1),
                               "exchange_ms": 1e3 * clock.exchange_s,
                               "combine_ms": clock.combine_ms,
-                              "adamw_ms": 1e3 * (t2 - t1),
-                              "step_ms": 1e3 * (t2 - t0)})
+                              "adamw_ms": 1e3 * (t3 - t2),
+                              "step_ms": 1e3 * (t3 - t0)})
             digests.append(_params_digest(model))
         launches = (ak.launches_partials, ak.launches_scaled_add)
         # Outside the timed window: both ranks' step-0 FFN wires, and
@@ -2027,6 +2068,447 @@ def phase_dp_step(device="cuda:0", cfg_kw=None, seq=SEQ, timeout=900.0,
     return {"world1": w1, "ranks": ranks}
 
 
+# Phase 12: the negotiated engine (ops/controller.py, core/cc) on the card.
+NEG_RANKS = 2
+NEG_OOO = {"names": 8, "shape": (4096, 11008), "inline_shape": (4096,)}
+NEG_STEPS = 3
+NEG_JOIN_STEPS = 2       # rank 1 joins after these; rank 0 runs one more
+NEG_ADASUM = {"shape": (4096, 11008), "cases": (200, 201),
+              # room for both fp16 gradients (86 MiB each) in one agreed
+              # batch, and the cut held until the ready set has not
+              # grown for 100 cycles, so they are usually agreed
+              # together; the gates hold for one batch or two (each
+              # entry is its own Adasum vector either way)
+              "threshold": 256 << 20, "quiescence": 100}
+NEG_SIDE_TENSORS = 16
+
+
+def neg_values(i, rank, shape):
+    """Name ``i``'s contribution on ``rank``: integers in [-8, 8], a
+    different pattern per name and rank, so every sum of two is exact
+    in bf16 and its host answer is exact."""
+    n = int(np.prod(shape))
+    x = torch.arange(n, dtype=torch.int64)
+    return ((x * (2 * i + 1) + 7 * rank + 3 * i) % 17 - 8).to(
+        torch.bfloat16).view(shape)
+
+
+def _neg_out_of_order(hvd, rank, device, shape, prefix):
+    """Every rank submits the same named allreduces (Sum); rank 1 in
+    reverse order. Per name: the largest distance from the host answer,
+    and the seconds from the first submission to the last result."""
+    names = [f"{prefix}{i}" for i in range(NEG_OOO["names"])]
+    xs = {nm: neg_values(i, rank, shape).to(device)
+          for i, nm in enumerate(names)}
+    order = names[::-1] if rank == 1 else names
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    hs = {nm: hvd.allreduce_async(xs[nm], name=nm, op=hvd.Sum)
+          for nm in order}
+    outs = {nm: hvd.synchronize(hs[nm]).cpu() for nm in names}
+    seconds = time.monotonic() - t0
+    dist = {}
+    for i, nm in enumerate(names):
+        want = sum(neg_values(i, r, shape).float() for r in range(NEG_RANKS))
+        dist[nm] = float((outs[nm].float() - want).abs().max())
+    return {"distance": dist, "s": seconds}
+
+
+class _HistDelta:
+    """Count and sum of a process-wide histogram since construction."""
+
+    def __init__(self, metrics, name):
+        self.metrics, self.name = metrics, name
+        self.count, self.sum = self._now()
+
+    def _now(self):
+        series = self.metrics.snapshot().get(self.name, {}).get(())
+        return (series["count"], series["sum"]) if series else (0, 0.0)
+
+    def take(self):
+        count, total = self._now()
+        out = (count - self.count, total - self.sum)
+        self.count, self.sum = count, total
+        return out
+
+
+def _neg_optimizer_steps(hvd, rank, device, cfg, seq, steps,
+                         capture=None):
+    """DistributedOptimizer(adamw(LR), Average) from seed 0's weights,
+    each rank on its own batch; per step the loss, host-clock parts,
+    agreed batches and the digest. ``capture(step)`` -> True makes the
+    step keep each local gradient as it was submitted."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.common.basics import state
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import train
+    cuda = device.startswith("cuda")
+    model = tfm.init_params(cfg, seed=0, device=device)
+    start = _params_digest(model)
+    local = {}
+    armed = [False]
+    for p in model.parameters():       # before the optimizer's own hooks
+        p.register_post_accumulate_grad_hook(
+            lambda p: local.__setitem__(id(p), p.grad.detach().clone())
+            if armed[0] else None)
+    opt = hvd.DistributedOptimizer(
+        train.adamw(model.parameters(), LR),
+        named_parameters=model.named_parameters())
+    ctl = state().engine.controller
+    hist = {k: _HistDelta(metrics, f"hvd_{k}") for k in (
+        "fusion_batch_entries", "negotiation_latency_seconds",
+        "dispatch_latency_seconds")}
+    out = []
+    for s in range(steps):
+        armed[0] = bool(capture and capture(s))
+        local.clear()
+        ar = list(ctl.exec_counts.get("ar", [0, 0])) if ctl else None
+        for h in hist.values():
+            h.take()
+        batch = {k: v.to(device) for k, v in
+                 dps_batch(cfg, seq, rank, s).items() if k != "scale"}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        opt.zero_grad()
+        loss = tfm.loss_fn(cfg, model, batch)
+        loss.backward()
+        t1 = time.monotonic()
+        opt.synchronize()
+        t2 = time.monotonic()
+        with opt.skip_synchronize():
+            opt.step()
+        if cuda:
+            torch.cuda.synchronize()
+        t3 = time.monotonic()
+        st = {"loss": float(loss.detach()), "step_ms": 1e3 * (t3 - t0),
+              "backward_returned_ms": 1e3 * (t1 - t0),
+              "wait_after_backward_ms": 1e3 * (t2 - t1),
+              "adamw_ms": 1e3 * (t3 - t2),
+              # host time of the agreed batches (negotiated) or the ops
+              # (inline): packing, host staging, gloo, the copy back
+              "dispatch_ms":
+              1e3 * hist["dispatch_latency_seconds"].take()[1],
+              "peak_bytes": torch.cuda.max_memory_allocated()
+              if cuda else None}
+        if ctl is not None:
+            now = ctl.exec_counts.get("ar", [0, 0])
+            st["batches"], st["entries"] = now[0] - ar[0], now[1] - ar[1]
+            n, total = hist["fusion_batch_entries"].take()
+            st["entries_per_batch"] = total / n if n else None
+            n, total = hist["negotiation_latency_seconds"].take()
+            st["negotiation_ms_mean"] = 1e3 * total / n if n else None
+        if armed[0]:
+            st["local_bitwise"] = all(
+                torch.equal(p.grad, local[id(p)]) for p in model.parameters())
+        st["digest"] = _params_digest(model)
+        out.append(st)
+    return model, opt, {"start": start, "steps": out}
+
+
+def neg_rank_main(rank, port, results, device, cfg_kw, seq, sizes):
+    """One rank of phase 12, in a spawned process: a gloo group the
+    process makes itself and the port adopts, HOROVOD_CONTROLLER left
+    at "auto" (the C++ core; rank 0's control port reaches rank 1
+    through the adopted group), HOROVOD_ORDER_CHECK=1. (a) out-of-order
+    submission, (b) DistributedOptimizer steps, (d) Adasum through the
+    engine, (e) a shape mismatch and the order check, (c) join (last:
+    once a rank has joined, the coordinator refuses every op but
+    allreduce, the order check's gather included); then,
+    with HOROVOD_CONTROLLER=inline, (a) at ``inline_shape`` and (b)
+    from the same start."""
+    import datetime
+    import torch.distributed as dist
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
+    try:
+        if cuda:
+            torch.cuda.set_device(torch.device(device))
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=NEG_RANKS,
+                                timeout=datetime.timedelta(seconds=300))
+        sys.path.insert(0, REPO)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.common.basics import state
+        from horovod_tpu_torch.models import transformer as tfm
+        from horovod_tpu_torch.ops import adasum as adasum_mod
+        from horovod_tpu_torch.ops import adasum_kernels as ak
+        from horovod_tpu_torch.ops import flash_attention as fa
+        t0 = time.monotonic()
+        hvd.init(config_overrides={"HOROVOD_ORDER_CHECK": True})
+        ctl = state().engine.controller
+        out = {"rank": rank, "backend": hvd.backend(),
+               "core": type(ctl.core).__name__,
+               "init_s": time.monotonic() - t0}
+        cfg = tfm.TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
+        # (a) out of order, negotiated
+        out["ooo"] = _neg_out_of_order(hvd, rank, device, sizes["ooo_shape"],
+                                       "ooo_")
+        # (b) DistributedOptimizer, negotiated
+        reset_counts(fa)
+        model, opt, run = _neg_optimizer_steps(hvd, rank, device, cfg, seq,
+                                               NEG_STEPS)
+        run["launches"] = launch_counts(fa)
+        out["optimizer"] = run
+        del model, opt
+        # (d) Adasum: two fp16 FFN-sized gradients, one agreed batch or two
+        dev = torch.device(device)
+        ctl.core.set_fusion_threshold(NEG_ADASUM["threshold"])
+        ctl.core.set_quiescence(NEG_ADASUM["quiescence"])
+        xs = [coll_contribution(device, sizes["adasum_shape"], torch.float16,
+                                case, rank) for case in NEG_ADASUM["cases"]]
+        ar = list(ctl.exec_counts.get("ar", [0, 0]))
+        ak.launches_partials = ak.launches_scaled_add = 0
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.monotonic()
+        hs = [hvd.allreduce_async(x, op=hvd.Adasum, name=f"adasum_{k}")
+              for k, x in enumerate(xs)]
+        got = [hvd.synchronize(h) for h in hs]
+        if cuda:
+            torch.cuda.synchronize()
+        adasum = {"s": time.monotonic() - t0,
+                  "launches": (ak.launches_partials, ak.launches_scaled_add),
+                  "batches": ctl.exec_counts["ar"][0] - ar[0],
+                  "entries": ctl.exec_counts["ar"][1] - ar[1],
+                  "digests": [_digest(g) for g in got]}
+        ctl.core.set_fusion_threshold(ctl.cfg.fusion_threshold)
+        ctl.core.set_quiescence(0)
+        if rank == 0:
+            errs = []
+            for case, g in zip(NEG_ADASUM["cases"], got):
+                rows = [coll_contribution(device, sizes["adasum_shape"],
+                                          torch.float16, case, r)
+                        .double().cpu().numpy().reshape(-1)
+                        for r in range(NEG_RANKS)]
+                errs.append(_norm_rel(g.double().cpu().numpy().reshape(-1),
+                                      adasum_mod.adasum_reference(rows)))
+                del rows
+            adasum["rel_err"] = errs
+        out["adasum"] = adasum
+        del xs, got
+        # (e) a shape mismatch errors every rank; the next op works; the
+        # order check over everything so far.
+        try:
+            hvd.allreduce(torch.ones(2 + rank, device=dev), name="mismatch",
+                          op=hvd.Sum)
+            out["mismatch"] = "no error"
+        except RuntimeError as e:
+            out["mismatch"] = str(e)
+        out["after_mismatch"] = hvd.allreduce(
+            torch.ones(3, device=dev), name="after_mismatch",
+            op=hvd.Sum).tolist()
+        out["order_count"] = hvd.check_execution_order()
+        # (c) join: rank 1 stops after NEG_JOIN_STEPS; rank 0 runs one
+        # more step with a joined peer, then a broadcast.
+        steps = NEG_JOIN_STEPS + (1 if rank == 0 else 0)
+        model, opt, run = _neg_optimizer_steps(
+            hvd, rank, device, cfg, seq, steps,
+            capture=lambda s: s == NEG_JOIN_STEPS)
+        join = {"steps": run["steps"]}
+        if rank == 0:
+            try:
+                hvd.broadcast(torch.ones(2, device=dev), root_rank=0,
+                              name="join_bcast")
+                join["broadcast"] = "no error"
+            except RuntimeError as e:
+                join["broadcast"] = str(e)
+        join["returned"] = hvd.join()
+        out["join"] = join
+        del model, opt
+        # Inline from here, in the same group.
+        hvd.shutdown()
+        hvd.init(config_overrides={"HOROVOD_CONTROLLER": "inline"})
+        out["inline_controller"] = state().engine.controller is not None
+        out["ooo_inline"] = _neg_out_of_order(
+            hvd, rank, device, sizes["inline_shape"], "ooo_inline_")
+        model, opt, run = _neg_optimizer_steps(hvd, rank, device, cfg, seq,
+                                               NEG_STEPS)
+        out["optimizer_inline"] = run
+        del model, opt
+        payload = out
+        status = "ok"
+        hvd.shutdown()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        payload = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        results.put((rank, status, payload))
+
+
+def neg_world1_main(rank, port, results, device, n_tensors):
+    """Phase 12 (f), in a spawned process: a world of one adopting a
+    one-rank NCCL group (gloo on the CPU), HOROVOD_CONTROLLER=native
+    (the C++ core, no sockets). A grouped allreduce of ``n_tensors``
+    tensors that a side stream is still producing when they are
+    submitted, against the inline path on the same tensors: bitwise.
+    The dispatch thread must wait for the side stream's work before it
+    packs, and the side stream for the dispatch thread's before it
+    reads the results."""
+    import torch.distributed as dist
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
+    try:
+        if cuda:
+            torch.cuda.set_device(torch.device(device))
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+        sys.path.insert(0, REPO)
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.common.basics import state
+        dev = torch.device(device)
+        side = torch.cuda.Stream(dev) if cuda else None
+        n = 4096 if cuda else 64
+        gen = torch.Generator(device=dev).manual_seed(7)
+        a = torch.randn(n, n, device=dev, generator=gen,
+                        dtype=torch.bfloat16)
+
+        def produce():
+            # Long matmul chains on the side stream: the tensors are
+            # still being written when the host submits them.
+            ts, x = [], a
+            for k in range(n_tensors):
+                for _ in range(4):
+                    x = torch.tanh(x @ a) if cuda else x
+                ts.append(x[k:k + 64 + 32 * k].float().clone())
+            return ts
+
+        runs = {}
+        for mode in ("native", "inline"):
+            hvd.init(config_overrides={"HOROVOD_CONTROLLER": mode})
+            ctl = state().engine.controller
+            with torch.cuda.stream(side) if cuda else \
+                    contextlib.nullcontext():
+                ts = produce()
+                got = hvd.grouped_allreduce(ts, op=hvd.Sum)
+                # Read on the side stream, after synchronize.
+                digest = _digest(torch.cat([g.reshape(-1) for g in got]))
+                same_as_input = all(torch.equal(g, t)
+                                    for g, t in zip(got, ts))
+            runs[mode] = {"core": type(ctl.core).__name__ if ctl else None,
+                          "digest": digest, "equal_inputs": same_as_input,
+                          "batches": dict(ctl.exec_counts) if ctl else None}
+            hvd.shutdown()
+        payload = {"backend": str(dist.get_backend()), "runs": runs}
+        status = "ok"
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        payload = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        results.put((rank, status, payload))
+
+
+NEG_SIZES = {"ooo_shape": NEG_OOO["shape"],
+             "inline_shape": NEG_OOO["inline_shape"],
+             "adasum_shape": NEG_ADASUM["shape"]}
+
+
+def phase_negotiated(device="cuda:0", cfg_kw=None, seq=SEQ, sizes=None,
+                     timeout=900.0):
+    """Phase 12: the negotiated engine, two gloo ranks sharing the
+    card, then (f) the world of one on NCCL."""
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, n_layers=DP_LAYERS)
+    sizes = sizes or NEG_SIZES
+    cuda = device.startswith("cuda")
+    t0 = time.monotonic()
+    ranks = spawn_ranks(neg_rank_main, NEG_RANKS,
+                        (device, cfg_kw, seq, sizes), timeout, "phase 12")
+    for r in ranks:
+        log("phase 12: " + json.dumps(r))
+    problems = []
+    neg = {"limit": 0.0}
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        if r["backend"] != "gloo" or r["core"] != "NativeCore":
+            problems.append(f"{tag}: {r['backend']}, {r['core']}")
+        # (a)
+        worst = max(r["ooo"]["distance"].values())
+        inline = max(r["ooo_inline"]["distance"].values())
+        neg[tag] = {"negotiated_distance": worst, "inline_distance": inline}
+        if worst != 0.0:
+            problems.append(f"{tag}: out of order, distance {worst}")
+        if inline <= 0.0 or r["inline_controller"]:
+            problems.append(f"{tag}: the inline run gave the host answers "
+                            "(the out-of-order check cannot fail)")
+        # (b)
+        n_steps = [r["optimizer"]["steps"], r["optimizer_inline"]["steps"]]
+        for run in n_steps:
+            if not all(np.isfinite(s["loss"]) for s in run):
+                problems.append(f"{tag}: a loss is not finite")
+        if r["optimizer"]["start"] != r["optimizer_inline"]["start"]:
+            problems.append(f"{tag}: the runs started from other weights")
+        for s, (a, b) in enumerate(zip(*n_steps)):
+            if a["digest"] != b["digest"]:
+                problems.append(f"{tag}: step {s} negotiated differs from "
+                                "inline")
+        want = DP_LAYERS * NEG_STEPS if cuda else 0
+        if r["optimizer"]["launches"] != {"fwd": want, "dkv": want,
+                                          "dq": want}:
+            problems.append(f"{tag}: K3 launches "
+                            f"{r['optimizer']['launches']}, want {want}")
+        # (c)
+        j = r["join"]
+        if j["returned"] != 0:
+            problems.append(f"{tag}: join returned {j['returned']}")
+        # (d)
+        a = r["adasum"]
+        want = (2, 2) if cuda else (0, 0)
+        if tuple(a["launches"]) != want or a["entries"] != 2 or \
+                a["batches"] not in (1, 2):
+            problems.append(f"{tag}: Adasum launches {a['launches']} "
+                            f"(want {want}), {a['batches']} batch(es) of "
+                            f"{a['entries']}")
+        # (e)
+        if "mismatch" not in r["mismatch"].lower() or \
+                r["after_mismatch"] != [2.0] * 3:
+            problems.append(f"{tag}: mismatch {r['mismatch']!r}, then "
+                            f"{r['after_mismatch']}")
+    log("phase 12 (a): " + json.dumps(neg))
+    for key in ("optimizer", "optimizer_inline"):
+        for s in range(NEG_STEPS):
+            if len({r[key]["steps"][s]["digest"] for r in ranks}) != 1:
+                problems.append(f"{key}: ranks differ after step {s}")
+    for s in range(NEG_JOIN_STEPS):
+        if len({r["join"]["steps"][s]["digest"] for r in ranks}) != 1:
+            problems.append(f"join run: ranks differ after step {s}")
+    last = ranks[0]["join"]["steps"][NEG_JOIN_STEPS]
+    if not (last.get("local_bitwise") and np.isfinite(last["loss"])):
+        problems.append("join: rank 0's reduced gradients are not its own")
+    if "join" not in ranks[0]["join"]["broadcast"].lower():
+        problems.append("join: the broadcast gave "
+                        f"{ranks[0]['join']['broadcast']!r}")
+    if len({r["order_count"] for r in ranks}) != 1:
+        problems.append("order check counts differ")
+    if len({tuple(r["adasum"]["digests"]) for r in ranks}) != 1:
+        problems.append("Adasum: ranks differ")
+    errs = ranks[0]["adasum"]["rel_err"]
+    if max(errs) > TOL_COMBINE[torch.float16]:
+        problems.append(f"Adasum: {errs} against the float64 reference")
+    (w1,) = spawn_ranks(neg_world1_main, 1, (device, NEG_SIDE_TENSORS),
+                        timeout, "phase 12 (f)")
+    log("phase 12 (f): " + json.dumps(w1))
+    if w1["backend"] != ("nccl" if cuda else "gloo"):
+        problems.append(f"(f): backend {w1['backend']}")
+    runs = w1["runs"]
+    if runs["native"]["core"] != "NativeCore" or \
+            runs["native"]["digest"] != runs["inline"]["digest"] or \
+            not (runs["native"]["equal_inputs"]
+                 and runs["inline"]["equal_inputs"]):
+        problems.append(f"(f): {runs}")
+    log(f"phase 12: {time.monotonic() - t0:.1f} s")
+    if problems:
+        raise AssertionError("phase 12: " + "; ".join(problems))
+    return {"ranks": ranks, "world1": w1, "out_of_order": neg}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2046,11 +2528,30 @@ def main():
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.monotonic()
+    # The C++ control core (g++) builds beside the nvcc builds; the
+    # spawned ranks of phases 9-12 then find it built.
+    from horovod_tpu_torch.core import native
+    core_build = {}
+
+    def build_core():
+        try:
+            core_build["path"] = native.build()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            core_build["error"] = e
+        core_build["s"] = time.monotonic() - t0
+    core_thread = threading.Thread(target=build_core)
+    core_thread.start()
     paths = _cuda_build.build(verbose=True)
     for name in paths:
         _cuda_build.load_library(name)
     log(f"phase 1: built {[os.path.relpath(p, REPO) for p in paths.values()]}"
         f" in {time.monotonic() - t0:.1f} s")
+    core_thread.join()
+    if "error" in core_build:
+        raise core_build["error"]
+    native.load()
+    log(f"phase 1: built {os.path.relpath(core_build['path'], REPO)} "
+        f"(the control core) in {core_build['s']:.1f} s")
     for name, build_log in _cuda_build.build_logs.items():
         for res in _cuda_build.ptxas_resources(build_log):
             log(f"phase 1: ptxas {name}: " + json.dumps(res))
@@ -2085,10 +2586,14 @@ def main():
     if routes_err > TOL_COMBINE[torch.float16]:
         raise AssertionError(f"phase 9: the routes disagree at step 0: "
                              f"{routes_err}")
+    t0 = time.monotonic()
     coll = phase_collectives()
+    log(f"phase 10: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     dps = phase_dp_step()
     log(f"phase 11: {time.monotonic() - t0:.1f} s")
+    neg = phase_negotiated()
+    neg_launches = [r["optimizer"]["launches"] for r in neg["ranks"]]
 
     main_case = cases[0]                     # (4, 2048, 32, 128) causal
     bwd_case = bwd_cases[0]                  # (2, 2048, 32, 128) causal
@@ -2102,6 +2607,8 @@ def main():
         "launches_per_step": per_step["fwd"],
         "launches_dp_step_per_rank": [r["launches"]["fwd"]
                                       for r in dps["ranks"]],
+        "launches_negotiated_steps_per_rank": [n["fwd"]
+                                               for n in neg_launches],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2130,6 +2637,8 @@ def main():
             "launches_per_step": per_step[key],
             "launches_dp_step_per_rank": [r["launches"][key]
                                           for r in dps["ranks"]],
+            "launches_negotiated_steps_per_rank": [n[key]
+                                                   for n in neg_launches],
             "max_abs_err": max(bwd_case["max_abs_err"][o] for o in outs),
             "slice_rel_err": max(bwd_case["slice_rel_err"][o] for o in outs),
             "ms": bwd_case[key]["ms"],
@@ -2143,7 +2652,7 @@ def main():
         })
     backward[0].update(cases=bwd_cases, training_path_vs_plain=train_path,
                        training=trained, dp_train_step=dps,
-                       function=bwd_case["function"])
+                       negotiated=neg, function=bwd_case["function"])
     ffn = next(c for c in adasum_cases if c["n"] == 4096 * 11008
                and c["dtype"] == "float16")
     embed = next(c for c in adasum_cases if c["n"] == 32000 * 4096
@@ -2164,6 +2673,9 @@ def main():
                 r["launches"][0 if key == "k1" else 1] for r in dp_gather),
             "launches_three_ranks_per_case": coll[0]["adasum"][0][
                 "launches_per_rank"],
+            "launches_negotiated_batch_per_rank": [
+                r["adasum"]["launches"][0 if key == "k1" else 1]
+                for r in neg["ranks"]],
             "max_abs_err": ffn[err],
             "ms": ffn[key]["ms"],
             "plain_ms": ffn[key]["plain_ms"],

@@ -1,7 +1,7 @@
 """horovod_tpu_torch — the PyTorch and CUDA port of horovod_tpu, grown
 slice by slice beside the JAX package, which stays the reference.
 
-Four slices so far. Serving: ``ServingFrontend`` batches requests onto
+Five slices so far. Serving: ``ServingFrontend`` batches requests onto
 padded ladder shapes and runs a two-argument forward on a worker that
 owns one ``torch.device``. Training on one device:
 ``parallel.train.build_train_step`` runs the loss (``models.transformer.
@@ -13,8 +13,11 @@ dQ backward kernels. Horovod's data-parallel loop on
 ``torch.distributed``: ``init``, ``broadcast_parameters``, the eager
 collectives (allreduce with Average, Sum, Min, Max, Product and Adasum,
 allgather, broadcast, alltoall, reducescatter, their grouped forms,
-``allgather_object``, ``barrier``), process sets, and
-``DistributedOptimizer``. Adasum runs on the vhdd route by default and
+``allgather_object``, ``barrier``, ``join``), process sets, and
+``DistributedOptimizer``; with size > 1 the negotiated engine (the C++
+control core of ``core/cc``, built at first use, and a background
+controller) agrees one order of fused batches on every rank, so ranks
+may submit in any order. Adasum runs on the vhdd route by default and
 on the gather route when asked; its arithmetic on the card is the
 hand-written CUDA kernels K1 and K2 of ``ops.adasum_kernels``. The
 data-parallel train step: ``build_train_step(..., mesh=
@@ -48,10 +51,10 @@ from .ops.collective_ops import (  # noqa: F401
     allgather_object, allreduce, allreduce_, allreduce_async,
     allreduce_async_, alltoall, alltoall_async, barrier, broadcast,
     broadcast_, broadcast_async, broadcast_async_, broadcast_object,
-    grouped_allgather, grouped_allgather_async, grouped_allreduce,
-    grouped_allreduce_async, grouped_reducescatter,
-    grouped_reducescatter_async, poll, reducescatter, reducescatter_async,
-    synchronize,
+    check_execution_order, grouped_allgather, grouped_allgather_async,
+    grouped_allreduce, grouped_allreduce_async, grouped_reducescatter,
+    grouped_reducescatter_async, join, poll, reducescatter,
+    reducescatter_async, synchronize,
 )
 from .ops.compression import Compression  # noqa: F401
 from .ops.process_set import ProcessSet  # noqa: F401

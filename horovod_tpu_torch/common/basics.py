@@ -31,15 +31,35 @@ same sets in the same order: each set gets its ``torch.distributed``
 group from ``new_group``, a collective over the world
 (``ops/process_set.py``).
 
-Not ported: the negotiated engine and controller (ROADMAP A.4),
-timeline, autotune, metrics server, tracing, journal and telemetry
-wiring.
+The eager engine (``ops/engine.py``) and, by HOROVOD_CONTROLLER, the
+negotiated controller (``ops/controller.py``) are attached as the JAX
+package attaches them (l.157-173): "auto" turns the controller on when
+size > 1, "native" always (the C++ core, built at first use from
+``core/cc``; a world of one opens no sockets), "python" in a world of
+one only (the in-process core), "inline" and "none" leave every op
+inline. The core's coordinator listens on HOROVOD_CONTROL_ADDR, else on
+HOROVOD_COORDINATOR_ADDR's port + 1 (the reference's rule,
+``ops/controller.py:446-456``).
+Declared difference: when neither is set and the group was adopted,
+every rank reports its host name; if all ranks are on one host, rank 0
+picks a free port on 127.0.0.1 and sends ``host:port`` to the others
+with ``broadcast_object_list`` over the adopted group, and otherwise
+init raises naming HOROVOD_CONTROL_ADDR. With size > 1 and no core that
+builds, init raises: nothing falls back. The controller's dispatch
+thread runs over world groups of its own (``ProcessSetTable.twin``),
+made at init on every rank. HOROVOD_CONTROL_TREE_ARITY >= 2 raises:
+the hierarchical control tree is not ported (ROADMAP A.7). ``shutdown``
+stops the controller before it destroys the groups.
+
+Not ported: timeline, autotune, metrics server, tracing, journal and
+telemetry wiring.
 """
 
 from __future__ import annotations
 
 import atexit
 import datetime
+import socket
 import threading
 from typing import Any, Dict, Optional
 
@@ -60,7 +80,7 @@ class HorovodTorchState:
         self.topology: Optional[Topology] = None
         self.process_set_table = None   # built by ops.process_set at init
         self.backend: Optional[str] = None
-        self.handles = None             # ops.collective_ops.HandleTable
+        self.engine = None              # ops.engine.Engine
         self._lock = threading.Lock()
         self._owns_group = False
 
@@ -129,26 +149,93 @@ def init(config_overrides: Optional[Dict[str, Any]] = None,
         _state._owns_group = owns
         hlog.set_rank(topo.rank)
         from ..ops.process_set import ProcessSetTable
-        from ..ops.collective_ops import HandleTable
+        from ..ops.engine import Engine
         table = ProcessSetTable(topo)
+        engine = Engine(cfg, topo, table)
         try:
             for ps in process_sets or ():
                 table.register(ps)
+            engine.controller = _make_controller(cfg, topo, engine,
+                                                 adopted, _state.backend)
         except BaseException:
+            engine.shutdown()
             table.close()
             if owns:
                 dist.destroy_process_group()
                 _state._owns_group = False
             raise
         _state.process_set_table = table
-        _state.handles = HandleTable()
+        _state.engine = engine
         _state.initialized = True
         hlog.info("horovod_tpu_torch initialized: rank=%d size=%d "
-                  "local_rank=%d local_size=%d backend=%s (%s)",
+                  "local_rank=%d local_size=%d backend=%s (%s) "
+                  "controller=%s",
                   topo.rank, topo.size, topo.local_rank, topo.local_size,
                   _state.backend or "none",
                   "adopted" if adopted else
-                  "created" if owns else "world of one")
+                  "created" if owns else "world of one",
+                  type(engine.controller.core).__name__
+                  if engine.controller is not None else "inline")
+
+
+def _make_controller(cfg, topo, engine, adopted: bool, backend):
+    """The negotiated controller HOROVOD_CONTROLLER asks for, or None
+    (the JAX package's basics.py:157-173)."""
+    mode = (cfg.controller or "auto").lower()
+    want = {"auto": topo.size > 1, "native": True, "python": True,
+            "inline": False, "none": False}.get(mode, False)
+    if not want:
+        return None
+    if cfg.control_tree_arity >= 2:
+        raise NotImplementedError(
+            "HOROVOD_CONTROL_TREE_ARITY >= 2: the hierarchical control "
+            "tree is not in the port yet (ROADMAP A.7); leave it at 0, "
+            "and every rank attaches to rank 0")
+    from ..core import native
+    from ..ops.controller import NegotiatedController, PythonCore
+    from .device import rank_device
+    core = (PythonCore(cfg.fusion_threshold, cfg.cycle_time_ms)
+            if mode == "python" and topo.size == 1 else None)
+    endpoint = world = None
+    if topo.size > 1 and mode != "python":
+        native.load()           # build first: a failure raises on every rank
+        endpoint = _control_endpoint(cfg, topo, adopted)
+        # The dispatch thread's own world groups: the caller's thread
+        # keeps the default group (the train step's exchange).
+        world = engine.pset_table.twin(engine.pset_table.global_set)
+    return NegotiatedController(cfg, topo, engine, core=core,
+                                endpoint=endpoint,
+                                device=rank_device(backend), world=world)
+
+
+def _control_endpoint(cfg, topo, adopted: bool):
+    """(host, port) of the coordinator's control listener: the
+    reference's rule, then the adopted-group rule (module docstring)."""
+    if cfg.control_addr:
+        host, port = cfg.control_addr.rsplit(":", 1)
+        return host, int(port)
+    if cfg.coordinator_addr:
+        host, port = cfg.coordinator_addr.rsplit(":", 1)
+        return host, int(port) + 1
+    if not adopted:
+        raise RuntimeError(
+            "negotiated controller needs HOROVOD_CONTROL_ADDR or "
+            "HOROVOD_COORDINATOR_ADDR (set by the launcher)")
+    hosts = [None] * topo.size
+    dist.all_gather_object(hosts, socket.gethostname())
+    if len(set(hosts)) != 1:
+        raise RuntimeError(
+            f"negotiated controller: the adopted group spans hosts "
+            f"{sorted(set(hosts))}; set HOROVOD_CONTROL_ADDR "
+            "(host:port of rank 0's control listener) on every rank")
+    box = [None]
+    if topo.rank == 0:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            box[0] = f"127.0.0.1:{s.getsockname()[1]}"
+    dist.broadcast_object_list(box, src=0)
+    host, port = box[0].rsplit(":", 1)
+    return host, int(port)
 
 
 def shutdown() -> None:
@@ -157,6 +244,7 @@ def shutdown() -> None:
     with _state._lock:
         if not _state.initialized:
             return
+        _state.engine.shutdown()
         _state.process_set_table.close()
         if _state._owns_group and dist.is_initialized():
             dist.destroy_process_group()
@@ -166,7 +254,7 @@ def shutdown() -> None:
         _state.topology = None
         _state.backend = None
         _state.process_set_table = None
-        _state.handles = None
+        _state.engine = None
         from ..ops import adasum as _adasum
         _adasum.set_adasum_mode("auto")
 

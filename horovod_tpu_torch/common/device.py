@@ -39,3 +39,12 @@ def pool_devices(device: Optional[DeviceLike] = None,
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [resolve_device(device, what)]
+
+
+def rank_device(backend: Optional[str]) -> torch.device:
+    """This rank's device: the current card under NCCL, or under gloo
+    when CUDA is present, else the CPU (a rank without a card runs its
+    collectives on host tensors)."""
+    if backend == "nccl" or torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

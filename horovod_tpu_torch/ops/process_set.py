@@ -92,6 +92,7 @@ class ProcessSetTable:
         self._lock = threading.Lock()
         self._by_id: Dict[int, ProcessSet] = {}
         self._next_id = 0
+        self._twins: List[ProcessSet] = []
         self.global_set = self.register(ProcessSet(range(topology.size)))
 
     def _needs_groups(self) -> bool:
@@ -126,6 +127,19 @@ class ProcessSetTable:
             self._by_id[ps.process_set_id] = ps
             return ps
 
+    def twin(self, ps: ProcessSet) -> ProcessSet:
+        """A stand-in for registered set ``ps`` (same id, same ranks)
+        with groups of its own: collectives one thread issues over the
+        twin never pair with those another issues over ``ps`` on the
+        same ranks. Collective over the world like ``register``;
+        destroyed with the table."""
+        with self._lock:
+            tw = ProcessSet(ps.ranks)
+            tw.process_set_id, tw._table = ps.process_set_id, self
+            self._make_groups(tw, is_global=False)
+            self._twins.append(tw)
+            return tw
+
     def remove(self, ps: ProcessSet) -> None:
         with self._lock:
             if ps.process_set_id == 0:
@@ -149,6 +163,9 @@ class ProcessSetTable:
             for ps in self._by_id.values():
                 _destroy([ps.group if ps.process_set_id else None,
                           *ps._suffixes.values()])
+            for tw in self._twins:
+                _destroy([tw.group, *tw._suffixes.values()])
+            self._twins.clear()
 
 
 def _destroy(groups) -> None:

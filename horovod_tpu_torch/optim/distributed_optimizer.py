@@ -8,20 +8,24 @@ re-classed into a dynamic subclass of its own class, so
 integration: lr schedulers, GradScaler) still holds.
 
 Each parameter gets a post-accumulate-grad hook that submits one
-allreduce of its gradient, in place, with the optimizer's op (Average by
-default; Sum; Adasum, where each gradient tensor is its own Adasum
-vector, as in the reference's single-process engine), compression and
-scale factors. Hooks fire in autograd's order, the same on every rank,
-so every rank submits the same collectives in the same order; the
-collective runs when it is submitted (``ops/collective_ops.py``), and
-negotiated fusion across tensors is ROADMAP A.4. ``step`` synchronizes
-the submissions, then steps the wrapped optimizer; ``synchronize`` and
+allreduce of its gradient, in place, named
+``DistributedOptimizer.<parameter name>``, with the optimizer's op
+(Average by default; Sum; Adasum), compression and scale factors. With
+size > 1 the negotiated controller takes the submissions
+(``ops/controller.py``): they return at once, ranks may submit in any
+order, and the coordinator fuses the gradients that are ready together
+into batches of up to HOROVOD_FUSION_THRESHOLD bytes, one packed
+collective each (under Adasum each gradient stays its own Adasum
+vector). Under HOROVOD_CONTROLLER=inline each reduction runs when it
+is submitted, one gradient tensor at a time. ``step`` synchronizes the
+submissions, then steps the wrapped optimizer; ``synchronize`` and
 ``skip_synchronize`` give the reference's GradScaler pattern.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Dict, Tuple
 
 import torch
@@ -73,9 +77,17 @@ class _DistributedOptimizer:
         self._handles: Dict[int, Tuple[torch.Tensor, int]] = {}
         self._passes: Dict[int, int] = {}
         self._skip = False
-        self._hooks = [
-            p.register_post_accumulate_grad_hook(self._hook)
-            for _, p in named if p.requires_grad]
+        # The parameters hold their hooks where Python's collector
+        # cannot see them, so a hook bound to the optimizer would keep
+        # it, its state and its parameters alive for good.
+        hook = weakref.WeakMethod(self._hook)
+
+        def fire(p):
+            method = hook()
+            if method is not None:
+                method(p)
+        self._hooks = [p.register_post_accumulate_grad_hook(fire)
+                       for _, p in named if p.requires_grad]
 
     def zero_grad(self, set_to_none: bool = True):
         if self._handles:

@@ -68,7 +68,9 @@ from ..metrics import record_wire
 from ..common.device import DeviceLike, resolve_device
 from ..ops.bucketing import (assignment_digest, dtype_name,
                              partition_buckets, split_by_dtype, tree_leaves)
-from ..ops.collective_ops import Average, Sum, _all_reduce_async, allreduce
+from ..ops.collective_ops import (Average, Sum, _all_reduce_async,
+                                  _reduce_group)
+from ..ops.compression import Compression
 from .mesh import Mesh, _live_axes, batch_axes, require_data_parallel
 
 
@@ -487,7 +489,10 @@ def build_train_step(
                 wire_bucket_bytes=_wire_bytes(plan))
 
     def batch_mean(x: torch.Tensor) -> torch.Tensor:
-        return allreduce(x, op=Average, process_set=pset) if live else x
+        # Off the eager engine, like the bucketed exchange: the
+        # reference averages inside the jitted step.
+        return _reduce_group([x], pset, Average, 1.0, 1.0,
+                             [Compression.none])[0] if live else x
 
     def step(model: torch.nn.Module,
              batch: Mapping[str, Any]) -> Dict[str, Any]:

@@ -101,6 +101,11 @@ def job_collectives(rank, size, args):
     hvd.broadcast_(b, root_rank=0)
     out["broadcast_inplace"] = _np(b)
     h = hvd.allreduce_async(x, op=hvd.Sum)
+    # With size > 1 the negotiated controller completes the op on its
+    # own thread: poll turns True once it has, before synchronize.
+    deadline = time.monotonic() + 30
+    while not hvd.poll(h) and time.monotonic() < deadline:
+        time.sleep(0.001)
     assert hvd.poll(h)
     hvd.synchronize(h)
     try:
@@ -539,3 +544,24 @@ def _module_imports():
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     return roots
+
+
+def test_distributed_optimizer_is_freed_with_its_model():
+    """Dropping the model and the optimizer frees both: the gradient
+    hooks the optimizer puts on the parameters do not keep it alive."""
+    import gc
+    import weakref
+    hvd.init()
+    try:
+        model = torch.nn.Linear(3, 2)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters())
+        model(torch.ones(1, 3)).sum().backward()
+        opt.step()
+        refs = [weakref.ref(x) for x in (opt, next(model.parameters()))]
+        del model, opt
+        gc.collect()
+        assert [r() for r in refs] == [None, None]
+    finally:
+        hvd.shutdown()

@@ -1,8 +1,9 @@
 """horovod_tpu_torch stands alone: importing it loads neither jax nor
 horovod_tpu, no file of it (nor chip_smoke.py) imports them, and its
-copies of the framework-neutral modules stay the reference's bytes
-but for a declared list of differences, and the K1/K2 sources cite the
-reference's functions at the lines that define them."""
+copies of the framework-neutral modules (and of the C++ control core's
+sources) stay the reference's bytes but for a declared list of
+differences, and the K1/K2 sources cite the reference's functions at
+the lines that define them."""
 
 import ast
 import os
@@ -20,6 +21,7 @@ FORBIDDEN = ("jax", "jaxlib", "horovod_tpu")
 # to the reference file must give the port's file exactly.
 DECLARED = {
     "common/logging.py": [],
+    "ops/order_check.py": [],
     "common/exceptions.py": [],
     "metrics.py": [],
     "faults.py": [],
@@ -219,6 +221,10 @@ def _port_modules():
 def test_every_module_of_the_port_imports_without_jax():
     modules = sorted(_port_modules())
     for name in ("horovod_tpu_torch.common.basics",
+                 "horovod_tpu_torch.core.native",
+                 "horovod_tpu_torch.ops.controller",
+                 "horovod_tpu_torch.ops.engine",
+                 "horovod_tpu_torch.ops.order_check",
                  "horovod_tpu_torch.common.topology",
                  "horovod_tpu_torch.ops.adasum",
                  "horovod_tpu_torch.ops.adasum_kernels",
@@ -276,9 +282,78 @@ def test_running_the_collectives_loads_no_jax():
     assert r.stdout.strip() == "[]"
 
 
-# function copies: (port module, reference module, function) -> the
-# declared replacements that turn the reference's source into the port's.
+def test_the_negotiated_engine_loads_no_jax():
+    """A world of one on the C++ core (HOROVOD_CONTROLLER=native) runs
+    every kind of negotiated batch and join, and has loaded neither jax
+    nor horovod_tpu."""
+    code = (
+        "import sys, torch\n"
+        "import horovod_tpu_torch as hvd\n"
+        "hvd.init(config_overrides={'HOROVOD_CONTROLLER': 'native',\n"
+        "                           'HOROVOD_ORDER_CHECK': True})\n"
+        "x = torch.arange(6.0).reshape(3, 2)\n"
+        "hvd.grouped_allreduce([x, x.double()]); hvd.allgather(x)\n"
+        "hvd.broadcast(x, 0); hvd.reducescatter(x); hvd.alltoall(x)\n"
+        "hvd.barrier(); hvd.check_execution_order(); hvd.join()\n"
+        "hvd.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+# The C++ control core: the library's sources and Makefile are the
+# reference's bytes (its stress, fuzz and tree-unit harnesses stay in
+# the reference).
+CORE_SOURCES = ["Makefile", "c_api.cc", "common.h", "controller.cc",
+                "controller.h", "sha256.h", "thread_annotations.h",
+                "tree.h", "wire.h"]
+
+
+@pytest.mark.parametrize("name", CORE_SOURCES)
+def test_core_source_is_the_references(name):
+    with open(os.path.join(REPO, "horovod_tpu", "core", "cc", name),
+              "rb") as f:
+        want = f.read()
+    with open(os.path.join(PORT, "core", "cc", name), "rb") as f:
+        assert f.read() == want
+
+
+def test_core_holds_only_the_library_sources():
+    assert sorted(os.listdir(os.path.join(PORT, "core", "cc"))) == \
+        sorted(CORE_SOURCES)
+
+
+# function and class copies: (port module, reference module, name; a
+# method as Class.method) -> the declared replacements that turn the
+# reference's source into the port's. OWN_DOCSTRING: the port's copy
+# has a docstring of its own (both docstrings are left out).
+OWN_DOCSTRING = "own docstring"
 DECLARED_FUNCTIONS = {
+    ("core/native.py", "core/native.py", "BatchEntry"): [],
+    ("core/native.py", "core/native.py", "NativeCore"): [
+        ("""        lib = load()
+        if lib is None:
+            raise RuntimeError("native core not built")
+""", """        lib = load()
+"""),
+        ("stable-composition (= stably-compiled) batch.",
+         "stable-composition batch.")],
+    ("ops/controller.py", "ops/controller.py", "PythonCore"): [],
+    ("ops/controller.py", "ops/controller.py", "parse_allreduce_sig"): [],
+    ("ops/controller.py", "ops/controller.py", "allreduce_sig"): [
+        OWN_DOCSTRING,
+        ('f"{jnp.dtype(rd)}:"', 'f"{dtype_name(rd)}:"'),
+        ('f"ar|{jnp.dtype(wire_dtype)}|', 'f"ar|{dtype_name(wire_dtype)}|'),
+    ],
+    ("ops/engine.py", "ops/engine.py", "Engine.auto_name"): [],
+    ("ops/engine.py", "ops/engine.py", "Engine.new_handle"): [],
+    ("ops/engine.py", "ops/engine.py", "Engine.get_handle"): [],
+    ("ops/engine.py", "ops/engine.py", "Engine.add_release_hook"): [],
+    ("ops/engine.py", "ops/engine.py", "Engine.release_handle"): [],
     ("ops/adasum.py", "ops/adasum.py", "_pow2_blocks"): [],
     ("ops/adasum.py", "ops/adasum.py", "adasum_reference"): [
         ('"""Pure-numpy model of the tree fold, for tests."""',
@@ -287,22 +362,35 @@ DECLARED_FUNCTIONS = {
 }
 
 
-def _function_source(path, name):
+def _function_source(path, name, drop_docstring=False):
     text = _read(*path.split("/"))
-    for node in ast.parse(text).body:
-        if isinstance(node, ast.FunctionDef) and node.name == name:
-            return ast.get_source_segment(text, node)
+    body = ast.parse(text).body
+    *outer, leaf = name.split(".")
+    for cls in outer:
+        body = next(n.body for n in body
+                    if isinstance(n, ast.ClassDef) and n.name == cls)
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) \
+                and node.name == leaf:
+            src = ast.get_source_segment(text, node)
+            if drop_docstring and ast.get_docstring(node) is not None:
+                src = src.replace(
+                    ast.get_source_segment(text, node.body[0]), "", 1)
+            return src
     raise AssertionError(f"{name} not in {path}")
 
 
 @pytest.mark.parametrize("key", sorted(DECLARED_FUNCTIONS))
 def test_copied_function_differs_only_as_declared(key):
     port, ref, name = key
-    expect = _function_source(f"horovod_tpu/{ref}", name)
-    for old, new in DECLARED_FUNCTIONS[key]:
+    declared = DECLARED_FUNCTIONS[key]
+    own_doc = OWN_DOCSTRING in declared
+    expect = _function_source(f"horovod_tpu/{ref}", name, own_doc)
+    for old, new in (d for d in declared if d != OWN_DOCSTRING):
         assert old in expect
         expect = expect.replace(old, new)
-    assert _function_source(f"horovod_tpu_torch/{port}", name) == expect
+    assert _function_source(f"horovod_tpu_torch/{port}", name,
+                            own_doc) == expect
 
 
 # The port's K1/K2 sources cite the reference's functions by line: a name

@@ -261,3 +261,26 @@ def test_phase_11_rehearses_on_the_cpu(monkeypatch):
     assert all(r["launches"] == {"fwd": 0, "dkv": 0, "dq": 0}
                for r in ranks)
     assert all(r["fp16"]["within"] for r in ranks)
+
+
+def test_phase_12_rehearses_on_the_cpu():
+    """Phase 12 at a small size on gloo and the CPU, under the default
+    knobs (the C++ core): out-of-order submission at the host answers
+    and a wrong answer inline, DistributedOptimizer negotiated bitwise
+    equal to inline, join (rank 0's reduced gradients its own, the
+    broadcast refused), two Adasum entries (one agreed batch or two) within
+    phase 8's fp16 tolerance, the mismatch and the order check, and the
+    world of one on the C++ core bitwise equal to inline (no launches:
+    the CPU runs the plain versions)."""
+    res = chip_smoke.phase_negotiated(
+        device="cpu", cfg_kw=SMALL_DP, seq=32,
+        sizes={"ooo_shape": (64, 48), "inline_shape": (64,),
+               "adasum_shape": (64, 48)}, timeout=120)
+    ranks = res["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert all(r["optimizer"]["launches"] == {"fwd": 0, "dkv": 0, "dq": 0}
+               for r in ranks)
+    assert all(r["adasum"]["launches"] == (0, 0) for r in ranks)
+    assert res["out_of_order"]["rank 0"]["inline_distance"] > 0
+    assert ranks[0]["join"]["steps"][-1]["local_bitwise"]
+    assert res["world1"]["runs"]["native"]["core"] == "NativeCore"
