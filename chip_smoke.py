@@ -2,7 +2,7 @@
 """Smoke run of horovod_tpu_torch on one NVIDIA card: builds the port's
 CUDA kernels and its C++ control core from this checkout and drives its
 serving, training, Adasum data-parallel, collective, data-parallel
-train-step and negotiated-engine paths.
+train-step, negotiated-engine and PowerSGD paths.
 
     python3 chip_smoke.py
 
@@ -167,7 +167,37 @@ Phases, in order; any failure exits non-zero before the result lines:
    one-rank NCCL group, HOROVOD_CONTROLLER=native: a 16-tensor grouped
    allreduce of tensors a side stream is still producing, bitwise
    equal to the inputs and to the inline path.
-13. A ``{"kernels": [...]}`` line, the card line, then the last line
+13. PowerSGD (``ops/compression.py``) on both reduction planes, two
+   gloo ranks sharing the card, Llama-2-7B width, 2 layers, bf16, B = 1,
+   L = 2048 per rank, HOROVOD_NUMERICS_GUARD=1, the default 64 MiB:
+   ``build_train_step(compression="powersgd:4")`` with
+   ``guard_non_finite(adamw(3e-4))`` for 3 steps from the broadcast
+   start, then a step rank 1's ``numerics.grad`` seam poisons and a
+   clean one; then from the same start ``DistributedOptimizer(adamw,
+   Average, compression=Compression.powersgd(rank=4))`` for 3
+   negotiated steps and a poisoned one. Gates: (a) both ranks' plan is
+   PSGD_PLAN (every matrix in a powersgd:4 bucket, the norms in one
+   exact bucket); (b) hvd_wire_bytes_total{compression="powersgd:4"}
+   moves by the reckoning per step, (n + m) 4 float32 elements per
+   matrix plus the norms and the guard's flag (3,158,020 bytes; the
+   optimizer records its factors, 3,076,096), where phase 11 moves
+   1,071,726,592; (c) parameters bitwise equal across ranks after every
+   step; (d) step 0's reduced ``layers.0.w_up`` gradient (the float32
+   round) has sigma_5 / sigma_1 < PSGD_LOW_RANK, the exact average of
+   the two ranks' gradients does not, and the applied gradient is that
+   round halved and cast, bitwise; (e) the round within TOL_PSGD of the
+   same round in float64 on the host over both ranks' gathered
+   gradients, while a plain sum and a round with P left
+   unorthogonalized each miss it by FAULT_MARGIN times the gate (all
+   three logged); (f) the poisoned step skips on both ranks with the
+   parameters, AdamW's state, Q and e bitwise unchanged, on both
+   planes, and the next clean step applies; (g) K3 launched 2 x 3 times
+   per kernel per rank on each plane. Per step: forward + backward,
+   the exchange after it and the bucket waits (train step, as phase
+   11), the synchronize and ``hvd_dispatch_latency_seconds``' delta
+   (optimizer), the PowerSGD arithmetic (CUDA events around
+   compress, project and decompress), AdamW, peak memory.
+14. A ``{"kernels": [...]}`` line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Forward tolerances, on the worst row's relative error (``row_rel_err``:
@@ -2509,6 +2539,449 @@ def phase_negotiated(device="cuda:0", cfg_kw=None, seq=SEQ, sizes=None,
     return {"ranks": ranks, "world1": w1, "out_of_order": neg}
 
 
+# Phase 13: PowerSGD on both reduction planes.
+PSGD_RANK = 4
+PSGD_STEPS = 3
+PSGD_MIN_ELEMENTS = 4096  # the knob's default: every matrix, no norm
+# The flagship's plan under powersgd:4 at the default 64 MiB: each
+# matrix in its own low-rank bucket family, the five float32 norms in
+# one exact bucket.
+PSGD_PLAN = (
+    "19:90177536|c=powersgd:4;18:90177536|c=powersgd:4;"
+    "17:90177536|c=powersgd:4;16,15:67108864|c=powersgd:4;"
+    "14,13:67108864|c=powersgd:4;12,11,3,2,1:81920;"
+    "10:90177536|c=powersgd:4;9:90177536|c=powersgd:4;"
+    "8:90177536|c=powersgd:4;7,6:67108864|c=powersgd:4;"
+    "5,4:67108864|c=powersgd:4;0:262144000|c=powersgd:4")
+PSGD_PROBE = "layers.0.w_up"
+# Gate (e): step 0's reduced probe gradient (the float32 round, before
+# the 1/n scale and the bf16 cast) against the same round in float64 on
+# the host, Frobenius norm of the error over the reference's. The
+# orthogonalization goes through the Cholesky factor of P^T P, whose
+# float32 error grows with cond(P)^2 (about 6e-8 * cond(P)^2 relative):
+# 1e-3 admits cond(P) up to ~100.
+TOL_PSGD = 1e-3
+# Gate (d): sigma_5 / sigma_1 below this is numerical rank <= 4.
+PSGD_LOW_RANK = 1e-3
+
+
+def _gram64(p):
+    """``gram_orthogonalize`` in float64 on the host."""
+    g = p.T @ p
+    jitter = np.trace(g) * 1e-7 + 1e-30
+    chol = np.linalg.cholesky(g + jitter * np.eye(g.shape[0]))
+    return np.linalg.solve(chol, p.T).T
+
+
+def powersgd_round_f64(mats, q):
+    """One PowerSGD round in float64 on the host over every rank's
+    matrix (residuals zero): the reduced sum P Q'^T, and two wrong
+    answers a gate must reject, the plain sum and the round with P left
+    unorthogonalized."""
+    ms = [np.asarray(m, np.float64) for m in mats]
+    q = np.asarray(q, np.float64)
+    p = sum(m @ q for m in ms)
+    po = _gram64(p)
+    right = po @ sum(m.T @ po for m in ms).T
+    return right, {"plain_sum": sum(ms),
+                   "unorthogonalized": p @ sum(m.T @ p for m in ms).T}
+
+
+def _rel64(got, ref):
+    got = np.asarray(got, np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _sigma_ratio(m):
+    """sigma_5 / sigma_1 of a matrix on its device, from the float64
+    eigenvalues of its Gram matrix."""
+    m = m.double()
+    g = m.T @ m if m.shape[0] >= m.shape[1] else m @ m.T
+    ev = torch.linalg.eigvalsh(g).clamp(min=0).sqrt().flip(0)
+    return float(ev[PSGD_RANK] / ev[0])
+
+
+def psgd_reckoning(model, min_elements, rank=PSGD_RANK):
+    """(factor bytes, exact bytes) per rank and step under powersgd:r,
+    from the parameters alone: (n + m) r float32 elements per matrix of
+    at least ``min_elements``, and the float32 norms with the guard's
+    flag riding their bucket."""
+    factors, exact = 0, 0
+    for p in model.parameters():
+        if p.dim() >= 2 and p.numel() >= min_elements:
+            n, m = p.shape[0], p.numel() // p.shape[0]
+            factors += 4 * (n + m) * min(rank, n, m)
+        else:
+            exact += p.numel() * p.element_size()
+    return factors, exact + 4
+
+
+class _EventTimer:
+    """Device milliseconds of the wrapped calls (CUDA events, read after
+    the step; the host clock on the CPU)."""
+
+    def __init__(self, cuda):
+        self.cuda, self.pairs, self.host_ms = cuda, [], 0.0
+
+    def wrap(self, fn):
+        def timed(*args, **kw):
+            if not self.cuda:
+                t0 = time.monotonic()
+                out = fn(*args, **kw)
+                self.host_ms += 1e3 * (time.monotonic() - t0)
+                return out
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return timed
+
+    def take(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+        ms = self.host_ms + sum(s.elapsed_time(e) for s, e in self.pairs)
+        self.pairs, self.host_ms = [], 0.0
+        return ms
+
+
+def _wire_bytes_now(metrics, tag):
+    return metrics.snapshot().get("hvd_wire_bytes_total", {}).get(
+        (tag,), 0.0)
+
+
+def _state_clone(state):
+    return {k: {i: t.clone() for i, t in state[k].items()}
+            for k in ("q", "e")}
+
+
+def _state_equal(a, b):
+    return all(torch.equal(a[k][i], b[k][i]) for k in ("q", "e")
+               for i in a[k])
+
+
+def psgd_rank_main(rank, port, results, device, cfg_kw, seq, steps,
+                   min_elements):
+    """One rank of phase 13, in a spawned process: the train step with
+    ``compression="powersgd:4"`` (guard on, overlap on, the default 64
+    MiB) for ``steps`` steps from the broadcast start, a step rank 1's
+    ``numerics.grad`` seam poisons and a clean one; then from the same
+    start DistributedOptimizer(AdamW, Average, Compression.powersgd(
+    rank=4)) on the negotiated engine, the same way."""
+    status, payload = "error", None
+    cuda = device.startswith("cuda")
+    try:
+        hvd = _join_world(rank, DP_RANKS, port, device, {
+            "HOROVOD_NUMERICS_GUARD": "1",
+            "HOROVOD_COMPRESSION_MIN_ELEMENTS": str(min_elements)})
+        from horovod_tpu_torch import faults, metrics, numerics, tracing
+        from horovod_tpu_torch.models import transformer as tfm
+        from horovod_tpu_torch.ops import compression as comp
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.parallel import mesh as mesh_mod
+        from horovod_tpu_torch.parallel import train
+        tag = f"powersgd:{PSGD_RANK}"
+        cfg = tfm.TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
+        model = tfm.init_params(cfg, seed=rank, device=device)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        names = [n for n, _ in model.named_parameters()]
+        probe_idx = names.index(PSGD_PROBE)
+        probe_param = model.get_parameter(PSGD_PROBE)
+        mesh = mesh_mod.data_parallel_mesh()
+        timer = _EventTimer(cuda)
+        for mod in (comp, train):
+            for name in ("powersgd_compress", "powersgd_project",
+                         "powersgd_decompress"):
+                setattr(mod, name, timer.wrap(getattr(mod, name)))
+        capture = {"armed": False, "calls": 0, "at": None}
+        inner_decompress = train.powersgd_decompress
+
+        def decompress(ms, ps, qns, red_q, n):
+            out = inner_decompress(ms, ps, qns, red_q, n)
+            if capture["armed"]:
+                if capture["calls"] == capture["at"][0]:
+                    capture["out"] = out[0][capture["at"][1]].detach().clone()
+                capture["calls"] += 1
+            return out
+        train.powersgd_decompress = decompress
+        local = {}
+        probe_param.register_post_accumulate_grad_hook(
+            lambda p: local.__setitem__("g", p.grad.detach().clone())
+            if capture["armed"] else None)
+
+        def fresh_model():
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+                    p.grad = None
+
+        def loss(m, b):
+            return tfm.loss_fn(cfg, m, b)
+
+        out = {"rank": rank, "backend": hvd.backend(),
+               "reckoning": psgd_reckoning(model, min_elements)}
+        # --- the train step -------------------------------------------
+        opt = numerics.guard_non_finite(train.adamw(model.parameters(), LR))
+        probe = tracing.OverlapProbe()
+        probe.armed = True
+        clock = _StepClock(cuda, model)
+        clock.watch(opt)
+        step = train.build_train_step(loss, opt, device, mesh=mesh,
+                                      overlap=True, overlap_probe=probe,
+                                      compression=tag)
+        plan = train.plan_overlap(model, mesh, guard=True, compression=tag)
+        lowrank = [b for b, t in enumerate(plan.bucket_compression)
+                   if t != "none"]
+        bid = next(b for b, idxs in enumerate(plan.bucket_leaf_indices)
+                   if probe_idx in idxs)
+        capture["at"] = (lowrank.index(bid),
+                         plan.bucket_leaf_indices[bid].index(probe_idx))
+        reset_counts(fa)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps_out, digests = [], []
+        for s in range(steps):
+            batch = {k: v for k, v in dps_batch(cfg, seq, rank, s).items()
+                     if k != "scale"}
+            capture.update(armed=s == 0, calls=0)
+            clock.reset()
+            with probe._lock:
+                probe.events.clear()
+            w0 = _wire_bytes_now(metrics, tag)
+            timer.take()
+            clock.sync()
+            t0 = time.monotonic()
+            metrics_ = step(model, batch)
+            clock.sync()
+            t1 = time.monotonic()
+            with probe._lock:
+                events = list(probe.events)
+            steps_out.append({
+                "loss": float(metrics_["loss"]),
+                **clock.parts(t0, events),
+                "step_ms": 1e3 * (t1 - t0),
+                "powersgd_compute_ms": timer.take(),
+                "wire_bytes": _wire_bytes_now(metrics, tag) - w0})
+            digests.append(_params_digest(model))
+            if s == 0:
+                capture["armed"] = False
+                applied = probe_param.grad.detach().clone()
+        out["train"] = {
+            "steps": steps_out, "digests": digests,
+            "plan": train.last_overlap_info(),
+            "tags": list(plan.bucket_compression),
+            "launches": launch_counts(fa),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if cuda else None)}
+        # (e), (d): step 0's probe gradient. The float32 round, scaled
+        # and cast, is what the step applied; both ranks' local
+        # gradients go to rank 0, which repeats the round in float64.
+        red32 = capture["out"]
+        scaled = (red32 * torch.tensor(1.0 / DP_RANKS, dtype=red32.dtype,
+                                       device=red32.device)).to(
+            probe_param.dtype)
+        out["train"]["applied_is_the_round"] = torch.equal(scaled, applied)
+        rows = hvd.allgather(local["g"].unsqueeze(0))
+        out["train"]["probe_sigma_ratio"] = _sigma_ratio(red32)
+        out["train"]["exact_sigma_ratio"] = _sigma_ratio(
+            rows.float().mean(0))
+        if rank == 0:
+            q0 = comp.init_q(tuple(probe_param.shape), PSGD_RANK, probe_idx,
+                             "cpu")
+            mats = [r.float().cpu().numpy().reshape(
+                comp.matrix_shape(probe_param.shape)) for r in rows]
+            ref, wrong = powersgd_round_f64(mats, q0.numpy())
+            got = red32.cpu().numpy()
+            out["train"]["probe_rel_err"] = _rel64(got, ref)
+            out["train"]["wrong_rel_err"] = {k: _rel64(w, ref)
+                                             for k, w in wrong.items()}
+        del rows, local["g"], red32, scaled, applied
+        # (f): rank 1's seam poisons one gradient element.
+        state = step.compression_state()
+        before_state = _state_clone(state)
+        before = _state_digest(model, opt)
+        if rank == 1:
+            faults.configure("numerics.grad:nan:at=1")
+        step(model, {k: v for k, v in dps_batch(cfg, seq, rank, steps)
+                     .items() if k != "scale"})
+        faults.configure(None)
+        out["train"]["nan"] = {
+            "kept_state": _state_digest(model, opt) == before,
+            "kept_q_e": _state_equal(before_state, step.compression_state()),
+            "skips": opt.total_skips}
+        del before_state
+        step(model, {k: v for k, v in dps_batch(cfg, seq, rank, steps + 1)
+                     .items() if k != "scale"})
+        out["train"]["nan"]["next_applied"] = \
+            _state_digest(model, opt) != before
+        out["train"]["nan"]["digest"] = _params_digest(model)
+        del step, opt, state
+        if cuda:
+            torch.cuda.empty_cache()
+        # --- DistributedOptimizer -------------------------------------
+        fresh_model()
+        opt = hvd.DistributedOptimizer(
+            numerics.guard_non_finite(train.adamw(model.parameters(), LR)),
+            named_parameters=model.named_parameters(), op=hvd.Average,
+            compression=hvd.Compression.powersgd(rank=PSGD_RANK))
+        dispatch = _HistDelta(metrics, "hvd_dispatch_latency_seconds")
+        reset_counts(fa)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps_out, digests = [], []
+        for s in range(steps):
+            batch = {k: v.to(device) for k, v in
+                     dps_batch(cfg, seq, rank, s).items() if k != "scale"}
+            dispatch.take()
+            w0 = _wire_bytes_now(metrics, tag)
+            timer.take()
+            clock.sync()
+            t0 = time.monotonic()
+            opt.zero_grad()
+            loss_ = tfm.loss_fn(cfg, model, batch)
+            loss_.backward()
+            clock.sync()
+            t1 = time.monotonic()
+            opt.synchronize()
+            clock.sync()
+            t2 = time.monotonic()
+            with opt.skip_synchronize():
+                opt.step()
+            clock.sync()
+            t3 = time.monotonic()
+            steps_out.append({
+                "loss": float(loss_.detach()),
+                "forward_backward_ms": 1e3 * (t1 - t0),
+                "synchronize_ms": 1e3 * (t2 - t1),
+                "adamw_ms": 1e3 * (t3 - t2), "step_ms": 1e3 * (t3 - t0),
+                "dispatch_ms": 1e3 * dispatch.take()[1],
+                "powersgd_compute_ms": timer.take(),
+                "wire_bytes": _wire_bytes_now(metrics, tag) - w0})
+            digests.append(_params_digest(model))
+        out["optimizer"] = {
+            "steps": steps_out, "digests": digests,
+            "launches": launch_counts(fa),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if cuda else None)}
+        st = opt.compression_state()
+        before_state = _state_clone(st)
+        before = _state_digest(model, opt)
+        if rank == 1:
+            faults.configure("numerics.grad:nan:at=1")
+        opt.zero_grad()
+        tfm.loss_fn(cfg, model, {k: v.to(device) for k, v in dps_batch(
+            cfg, seq, rank, steps).items() if k != "scale"}).backward()
+        opt.step()
+        faults.configure(None)
+        out["optimizer"]["nan"] = {
+            "kept_state": _state_digest(model, opt) == before,
+            "kept_q_e": _state_equal(before_state, opt.compression_state()),
+            "skips": opt.total_skips, "digest": _params_digest(model)}
+        payload = out
+        status = "ok"
+        hvd.shutdown()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        payload = traceback.format_exc()
+    finally:
+        results.put((rank, status, payload))
+
+
+def phase_powersgd(device="cuda:0", cfg_kw=None, seq=SEQ, timeout=900.0,
+                   plan=PSGD_PLAN, min_elements=PSGD_MIN_ELEMENTS):
+    """Phase 13: PowerSGD rank 4 on the train step and on
+    DistributedOptimizer, two gloo ranks sharing the card."""
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, n_layers=DP_LAYERS)
+    cuda = device.startswith("cuda")
+    t0 = time.monotonic()
+    ranks = spawn_ranks(psgd_rank_main, DP_RANKS,
+                        (device, cfg_kw, seq, PSGD_STEPS, min_elements),
+                        timeout, "phase 13")
+    for r in ranks:
+        log(f"phase 13: rank {r['rank']} train step " + json.dumps(
+            {k: v for k, v in r["train"].items() if k != "plan"}))
+        log(f"phase 13: rank {r['rank']} plan " + json.dumps(
+            r["train"]["plan"]))
+        log(f"phase 13: rank {r['rank']} optimizer " + json.dumps(
+            r["optimizer"]))
+    problems = []
+    factors, exact = ranks[0]["reckoning"]
+    want_k3 = DP_LAYERS * PSGD_STEPS if cuda else 0
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        tr, op = r["train"], r["optimizer"]
+        if r["backend"] != "gloo":
+            problems.append(f"{tag}: backend {r['backend']}")
+        # (a) the plan; every bucket of matrices is low-rank
+        if tr["plan"]["digest"] != plan or tr["plan"]["compression"] != \
+                f"powersgd:{PSGD_RANK}":
+            problems.append(f"{tag}: plan {tr['plan']['digest']}")
+        if tr["tags"].count("none") != 1:
+            problems.append(f"{tag}: bucket tags {tr['tags']}")
+        # (b) the wire per step
+        for s, st in enumerate(tr["steps"]):
+            if st["wire_bytes"] != factors + exact:
+                problems.append(f"{tag}: step {s} wire {st['wire_bytes']}, "
+                                f"reckoned {factors + exact}")
+            if not np.isfinite(st["loss"]):
+                problems.append(f"{tag}: step {s} loss {st['loss']}")
+        for s, st in enumerate(op["steps"]):
+            if st["wire_bytes"] != factors:
+                problems.append(f"{tag}: optimizer step {s} wire "
+                                f"{st['wire_bytes']}, reckoned {factors}")
+            if not np.isfinite(st["loss"]):
+                problems.append(f"{tag}: optimizer step {s} loss")
+        # (d) compression happened
+        if not (tr["probe_sigma_ratio"] < PSGD_LOW_RANK
+                <= tr["exact_sigma_ratio"]):
+            problems.append(f"{tag}: sigma_5/sigma_1 reduced "
+                            f"{tr['probe_sigma_ratio']}, exact "
+                            f"{tr['exact_sigma_ratio']}")
+        if not tr["applied_is_the_round"]:
+            problems.append(f"{tag}: the applied gradient is not the round")
+        # (f) the poisoned step
+        for plane in (tr, op):
+            n = plane["nan"]
+            if not (n["kept_state"] and n["kept_q_e"] and n["skips"] == 1):
+                problems.append(f"{tag}: poisoned step {n}")
+        if not tr["nan"]["next_applied"]:
+            problems.append(f"{tag}: the clean step after it did not apply")
+        # (g) K3
+        for name, plane in (("train step", tr), ("optimizer", op)):
+            if plane["launches"] != {"fwd": want_k3, "dkv": want_k3,
+                                     "dq": want_k3}:
+                problems.append(f"{tag}: {name} K3 launches "
+                                f"{plane['launches']}, want {want_k3}")
+    # (e) the round against float64, and the wrong answers it rejects
+    tr0 = ranks[0]["train"]
+    wrong = tr0["wrong_rel_err"]
+    log(f"phase 13 (e): probe {PSGD_PROBE} against the float64 round "
+        f"{tr0['probe_rel_err']:.3e} (gate {TOL_PSGD}); wrong answers "
+        + json.dumps(wrong) + f", each must exceed "
+        f"{FAULT_MARGIN * TOL_PSGD}")
+    if tr0["probe_rel_err"] > TOL_PSGD:
+        problems.append(f"(e): {tr0['probe_rel_err']} against float64")
+    for k, v in wrong.items():
+        if not v > FAULT_MARGIN * TOL_PSGD:
+            problems.append(f"(e): the gate cannot tell the {k} ({v})")
+    # (c) ranks bitwise equal
+    for key in ("train", "optimizer"):
+        for s in range(PSGD_STEPS):
+            if len({r[key]["digests"][s] for r in ranks}) != 1:
+                problems.append(f"{key}: ranks differ after step {s}")
+        if len({r[key]["nan"]["digest"] for r in ranks}) != 1:
+            problems.append(f"{key}: ranks differ after the poisoned step")
+    log(f"phase 13: wire per rank and step {factors + exact} bytes "
+        f"(train step), {factors} (optimizer's factors); "
+        f"{time.monotonic() - t0:.1f} s")
+    if problems:
+        raise AssertionError("phase 13: " + "; ".join(problems))
+    return {"ranks": ranks}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2594,6 +3067,10 @@ def main():
     log(f"phase 11: {time.monotonic() - t0:.1f} s")
     neg = phase_negotiated()
     neg_launches = [r["optimizer"]["launches"] for r in neg["ranks"]]
+    psgd = phase_powersgd()
+    psgd_launches = [{"train_step": r["train"]["launches"],
+                      "optimizer": r["optimizer"]["launches"]}
+                     for r in psgd["ranks"]]
 
     main_case = cases[0]                     # (4, 2048, 32, 128) causal
     bwd_case = bwd_cases[0]                  # (2, 2048, 32, 128) causal
@@ -2609,6 +3086,8 @@ def main():
                                       for r in dps["ranks"]],
         "launches_negotiated_steps_per_rank": [n["fwd"]
                                                for n in neg_launches],
+        "launches_powersgd_steps_per_rank": [
+            {plane: n[plane]["fwd"] for plane in n} for n in psgd_launches],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2639,6 +3118,9 @@ def main():
                                           for r in dps["ranks"]],
             "launches_negotiated_steps_per_rank": [n[key]
                                                    for n in neg_launches],
+            "launches_powersgd_steps_per_rank": [
+                {plane: n[plane][key] for plane in n}
+                for n in psgd_launches],
             "max_abs_err": max(bwd_case["max_abs_err"][o] for o in outs),
             "slice_rel_err": max(bwd_case["slice_rel_err"][o] for o in outs),
             "ms": bwd_case[key]["ms"],
@@ -2652,7 +3134,8 @@ def main():
         })
     backward[0].update(cases=bwd_cases, training_path_vs_plain=train_path,
                        training=trained, dp_train_step=dps,
-                       negotiated=neg, function=bwd_case["function"])
+                       negotiated=neg, powersgd=psgd,
+                       function=bwd_case["function"])
     ffn = next(c for c in adasum_cases if c["n"] == 4096 * 11008
                and c["dtype"] == "float16")
     embed = next(c for c in adasum_cases if c["n"] == 32000 * 4096

@@ -24,7 +24,11 @@ data-parallel train step: ``build_train_step(..., mesh=
 data_parallel_mesh())`` reduces the gradients in buckets inside the
 backward (or in one pass after it), with fp16/bf16 wire casts, the
 numerics guard (``guard_non_finite``) and replica digests
-(``check_replica_divergence``). Entry
+(``check_replica_divergence``). PowerSGD (``Compression.powersgd``,
+``compression="powersgd[:r]"``) compresses the gradient matrices of both
+that step and ``DistributedOptimizer`` to rank-r float32 factors with
+error feedback; ``DistributedLossScaler`` is the dynamic loss scale.
+Entry
 points run on the card unless the caller passes ``device="cpu"``, and
 raise when there is no card and no device was given.
 
@@ -63,7 +67,8 @@ from .ops.flash_attention import (  # noqa: F401
     flash_attention_fwd, flash_attention_fwd_plain,
 )
 from .numerics import (  # noqa: F401
-    check_replica_divergence, guard_non_finite, params_digest,
+    DistributedLossScaler, check_replica_divergence, guard_non_finite,
+    params_digest,
 )
 from .optim.distributed_optimizer import DistributedOptimizer  # noqa: F401
 from .optim.functions import (  # noqa: F401

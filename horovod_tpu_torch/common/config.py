@@ -3,8 +3,9 @@
 Port copy (horovod_tpu_torch): the same knobs, types and defaults as
 the JAX package's registry. Deliberate differences, each pinned by
 tests/test_torch_port_isolation.py: this paragraph; the doc of
-HOROVOD_FLASH_ATTENTION, which here says the port does not read it; and
-the registry path named in the unknown-knob errors.
+HOROVOD_FLASH_ATTENTION, which here says the port does not read it; the
+docs of the four HOROVOD_COMPRESSION knobs, which describe the port's
+two planes; and the registry path named in the unknown-knob errors.
 
 Environment variables are the config system, mirroring the reference
 (reference: horovod/common/utils/env_parser.cc — SetBoolFromEnv /
@@ -60,37 +61,27 @@ KNOBS: List[Knob] = [
          "round trip is pure overhead (elided since r08; "
          "single-chip programs lower with no bucket machinery)."),
     Knob("HOROVOD_COMPRESSION", str, "none",
-         "Per-bucket gradient wire compression applied inside the "
-         "shared bucketing layer, both planes (jit bucketed psums and "
-         "the eager grouped allreduce): none (default; byte-identical "
-         "programs to the uncompressed builder, test-pinned), fp16 / "
-         "bf16 (cast wire, the reference's ceiling), or "
-         "powersgd[:rank] (low-rank factor wire with error feedback "
-         "— Vogels et al. NeurIPS 2019). The numerics finite-flag "
-         "vote never rides a compressed carrier: compressed buckets "
-         "carry the veto as a separate exact f32 psum (HVD007 "
-         "check (e))."),
+         "Gradient wire compression of the data-parallel train step's "
+         "buckets and of DistributedOptimizer: none (default), fp16 / "
+         "bf16 (cast wire), or powersgd[:rank] (low-rank factor wire "
+         "with error feedback — Vogels et al. NeurIPS 2019). The "
+         "numerics finite-flag vote never rides a compressed wire: it "
+         "travels as an exact float32 allreduce of its own."),
     Knob("HOROVOD_COMPRESSION_RANK", int, 4,
          "PowerSGD approximation rank r when HOROVOD_COMPRESSION="
-         "powersgd carries no explicit :rank suffix. Wire per "
-         "compressed matrix drops from n*m to r*(n+m) elements; "
-         "rank<=4 already clears 4x on the VGG/transformer dense "
-         "buckets (BENCH_compression_ab_r13.json)."),
+         "powersgd carries no explicit :rank suffix. The wire of one "
+         "compressed n x m matrix drops from n*m elements in its own "
+         "dtype to r*(n+m) float32 elements."),
     Knob("HOROVOD_COMPRESSION_WARMUP_STEPS", int, 0,
          "Steps to run the EXACT reduction before switching to the "
-         "compressed wire. The eager plane counts steps in its "
-         "optimizer state and switches in place; the jit plane's "
-         "compressed step is a separate compiled program, so the "
-         "harness (bench.py convergence loop is the template) runs "
-         "the compression=none build for the first N steps and then "
-         "switches — one extra compile, no in-program branch (the "
-         "traced wire stays the plan HVD007 verified)."),
+         "compressed wire. DistributedOptimizer counts its steps and "
+         "switches in place; for the data-parallel train step the "
+         "caller runs a compression='none' step for the first N steps "
+         "and then the compressed one."),
     Knob("HOROVOD_COMPRESSION_MIN_ELEMENTS", int, 4096,
-         "PowerSGD bypass floor: leaves with fewer elements (and all "
-         "non-2D-reshapeable leaves — biases, scalars, norm gains) "
-         "take the exact path. Low-rank wire only pays for dense "
-         "matrices; below this size the factor handshake costs more "
-         "than it saves."),
+         "PowerSGD bypass floor: parameters with fewer elements (and "
+         "all that are not matrices — biases, scalars, norm gains) "
+         "take the exact path."),
     Knob("HOROVOD_CYCLE_TIME", float, 1.0,
          "Background engine cycle time in milliseconds: how often the "
          "pending-tensor queue is drained and negotiated."),

@@ -4,9 +4,11 @@
 Port of ``horovod_tpu/numerics.py``: its knobs (``guard_enabled``,
 ``max_consecutive_skips``, ``check_every``, l.139-152), its finite flags
 and imprint (l.155-201), ``guard_non_finite`` (l.224) with its skip
-counters and escalation (l.285-347), ``params_digest`` (l.438) and
-``check_replica_divergence`` (l.455), on torch tensors and
-``torch.distributed``.
+counters and escalation (l.285-347), ``LossScaleState`` and
+``DistributedLossScaler`` (l.350-430), ``params_digest`` (l.438),
+``check_replica_divergence`` (l.455) and the chaos seams
+``maybe_corrupt_grads`` (l.537) and ``maybe_flip_param`` (l.561), on
+torch tensors and ``torch.distributed``.
 
 - With ``HOROVOD_NUMERICS_GUARD=1`` the data-parallel step
   (``parallel/train.py``) reduces every rank's 0/1 finite flag with the
@@ -20,19 +22,27 @@ counters and escalation (l.285-347), ``params_digest`` (l.438) and
   64-bit digest, allgathers the digests and raises
   ``ReplicaDivergenceError`` naming the divergent ranks.
 
+- ``DistributedLossScaler`` is the reference's functional dynamic loss
+  scale (``init`` / ``scale`` / ``unscale`` / ``update(state,
+  grads_finite)``) on device tensors: fed the coordinated finite flag,
+  every rank derives bitwise the same scale with no collective.
+- The chaos seams: ``maybe_corrupt_grads`` (``numerics.grad``) poisons
+  one element of a rank-local gradient at a reduction's entry (the
+  data-parallel step's and ``DistributedOptimizer``'s);
+  ``maybe_flip_param`` (``numerics.param``) flips one parameter bit.
+
 The torch optimizer takes the place of the optax transformation: the
 guard is a subclass of the optimizer's own class (``isinstance`` still
 holds) whose ``step`` skips, not a transformation that zeroes updates.
-``DistributedLossScaler`` and the chaos seams (``numerics.grad``,
-``numerics.param``) are ROADMAP A.8; ``on_commit`` comes with the
-elastic slice (A.7).
+``on_commit``, which fires the parameter seam at the elastic commit,
+comes with the elastic slice (ROADMAP A.7).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +61,9 @@ _m_consec = _METRICS.gauge(
     "hvd_numerics_consecutive_skips",
     "Current consecutive coordinated skip-steps (worst guard state "
     "observed; resets to 0 on the first clean step).")
+_m_loss_scale = _METRICS.gauge(
+    "hvd_loss_scale",
+    "Current dynamic loss scale (DistributedLossScaler).")
 _m_checks = _METRICS.counter(
     "hvd_replica_digest_checks_total",
     "Replica-divergence digest checks performed.")
@@ -273,6 +286,101 @@ def check_escalation(optimizers: Any,
 
 
 # ---------------------------------------------------------------------------
+# distributed dynamic loss scaling
+
+class LossScaleState(NamedTuple):
+    scale: torch.Tensor          # float32 scalar
+    growth_count: torch.Tensor   # int32 scalar: clean steps since change
+
+
+class DistributedLossScaler:
+    """Dynamic loss scaling with torch.amp.GradScaler's schedule (back
+    off on overflow, grow after ``growth_interval`` clean steps), as a
+    functional state the loop threads:
+
+        scaler = DistributedLossScaler()
+        sstate = scaler.init(device)
+        loss   = scaler.scale(raw_loss, sstate)
+        ...                                     # backward, reduction
+        grads  = scaler.unscale(grads, sstate)
+        ok     = numerics.all_finite(grads)     # the reduced gradients
+        sstate = scaler.update(sstate, ok)
+
+    ``update`` must be fed the coordinated finite flag (of the reduced
+    or guard-imprinted gradients), the same on every rank, so every
+    rank derives bitwise the same scale with no collective. Pair it
+    with ``guard_non_finite`` so the overflowed step is skipped."""
+
+    def __init__(self, init_scale: Optional[float] = None,
+                 growth_factor: float = 2.0,
+                 backoff_factor: float = 0.5,
+                 growth_interval: Optional[int] = None,
+                 min_scale: float = 1.0):
+        if init_scale is None:
+            init_scale = float(_cfg("HOROVOD_NUMERICS_INIT_SCALE",
+                                    65536.0))
+        if growth_interval is None:
+            growth_interval = int(_cfg(
+                "HOROVOD_NUMERICS_GROWTH_INTERVAL", 2000))
+        if growth_factor <= 1.0 or not 0.0 < backoff_factor < 1.0:
+            raise ValueError("growth_factor must be > 1 and "
+                             "backoff_factor in (0, 1)")
+        self.init_scale = float(init_scale)
+        self.growth_factor = float(growth_factor)
+        self.backoff_factor = float(backoff_factor)
+        self.growth_interval = int(growth_interval)
+        self.min_scale = float(min_scale)
+
+    def init(self, device=None) -> LossScaleState:
+        """The starting state on ``device`` (the card unless
+        ``device="cpu"``)."""
+        from .common.device import resolve_device
+        dev = resolve_device(device, "DistributedLossScaler.init")
+        return LossScaleState(
+            scale=torch.tensor(self.init_scale, dtype=torch.float32,
+                               device=dev),
+            growth_count=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def scale(self, loss: torch.Tensor, state: LossScaleState
+              ) -> torch.Tensor:
+        return loss * state.scale.to(loss.dtype)
+
+    def unscale(self, grads: Any, state: LossScaleState) -> Any:
+        """Every tensor of ``grads`` (a tensor, or dicts, lists and
+        tuples of them) times 1 / scale in its own dtype."""
+        inv = torch.tensor(1.0, dtype=torch.float32,
+                           device=state.scale.device) / state.scale
+
+        def one(g):
+            if isinstance(g, dict):
+                return {k: one(v) for k, v in g.items()}
+            if isinstance(g, (list, tuple)):
+                return type(g)(one(v) for v in g)
+            return g * inv.to(device=g.device, dtype=g.dtype)
+        return one(grads)
+
+    def update(self, state: LossScaleState, grads_finite) -> LossScaleState:
+        ok = torch.as_tensor(grads_finite, device=state.scale.device)
+        grown = (state.growth_count + 1) >= self.growth_interval
+        new_scale = torch.where(
+            ok,
+            torch.where(grown, state.scale * self.growth_factor,
+                        state.scale),
+            torch.clamp(state.scale * self.backoff_factor,
+                        min=self.min_scale))
+        new_count = torch.where(
+            torch.logical_and(ok, torch.logical_not(grown)),
+            state.growth_count + 1,
+            torch.zeros((), dtype=torch.int32, device=ok.device))
+        _m_loss_scale.set(float(new_scale))
+        if not bool(ok):
+            _m_skipped.labels(reason="overflow").inc()
+            hlog.warning("numerics: loss-scale overflow — backing off "
+                         "to %g", float(new_scale))
+        return LossScaleState(new_scale, new_count)
+
+
+# ---------------------------------------------------------------------------
 # replica-divergence (SDC) sentinel
 
 def _host_array(leaf: Any) -> Tuple[np.ndarray, str]:
@@ -357,3 +465,68 @@ def check_replica_divergence(params: Any, name: str = "numerics.digest",
         msg + "; elastic restore + rank-0 sync recovers",
         divergent_ranks=divergent)
 
+
+# ---------------------------------------------------------------------------
+# chaos seams (faults.py points numerics.grad and numerics.param)
+
+def _dense_inexact(t: Any) -> bool:
+    return (isinstance(t, torch.Tensor) and not t.is_sparse
+            and _inexact(t))
+
+
+def maybe_corrupt_grads(leaves: List[Any]) -> List[Any]:
+    """The ``numerics.grad`` seam: on a scheduled fire ("nan" or
+    "inf"), a new list whose first dense inexact tensor is a copy with
+    its first element poisoned (rank-local; the coordinated skip is what
+    must catch it). Returns ``leaves`` itself when nothing fires."""
+    from . import faults
+    if not faults.active():
+        return leaves
+    dense = [i for i, t in enumerate(leaves) if _dense_inexact(t)]
+    if not dense:
+        return leaves
+    act = faults.fire("numerics.grad")
+    if act not in ("nan", "inf"):
+        return leaves
+    i = dense[0]
+    leaves = list(leaves)
+    t = leaves[i].detach().clone()
+    t.view(-1)[0] = float("nan") if act == "nan" else float("inf")
+    leaves[i] = t
+    return leaves
+
+
+def _flipped(t: torch.Tensor) -> torch.Tensor:
+    out = t.detach().contiguous().clone()
+    raw = out.view(-1).view(torch.uint8)
+    raw[raw.numel() // 2] ^= 0x10
+    return out
+
+
+def maybe_flip_param(tree: Any) -> Any:
+    """The ``numerics.param`` seam: on a scheduled "flip", a new tree
+    (dicts visited by sorted key, lists and tuples in order) whose first
+    inexact tensor is a copy with one bit flipped in the middle of its
+    byte image (a simulated silent data corruption). Returns ``tree``
+    itself when nothing fires."""
+    from . import faults
+    if not faults.active():
+        return tree
+    if faults.fire("numerics.param") != "flip":
+        return tree
+    done = [False]
+
+    def walk(node):
+        if isinstance(node, dict):
+            new = {k: walk(node[k]) for k in sorted(node)}
+            return {k: new[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if not done[0] and _dense_inexact(node):
+            done[0] = True
+            hlog.warning("faults: flipped one parameter bit "
+                         "(simulated silent data corruption)")
+            return _flipped(node)
+        return node
+    out = walk(tree)
+    return out if done[0] else tree

@@ -6,10 +6,11 @@ on a pure data-parallel mesh (``parallel/mesh.py``): its knobs
 l.53-104), ``last_overlap_info`` (l.106), the bucket plan (``WireGroup``,
 ``OverlapPlan``, ``_plan_wire``, ``_flag_carrier_group`` and
 ``plan_overlap``, l.124-309, computed from shapes and dtypes as there),
-the bucketed reduction of ``_make_bucket_tag``'s backward rule
-(l.570-654), which also stands for the monolithic ``reduce_grads``
-(l.949-981) and its unanimity vote (l.916), and ``_finish_step``
-(l.1199). A step computes
+``init_compression_state`` (l.311), the bucketed reduction of
+``_make_bucket_tag``'s backward rule (l.570-654), which also stands for
+the monolithic ``reduce_grads`` (l.949-981) and its unanimity vote
+(l.916), the PowerSGD round of ``_make_powersgd_tag`` (l.660-757), and
+``_finish_step`` (l.1199). A step computes
 the local loss on this rank's batch, runs the backward (through every
 layer's flash attention kernels on the card), reduces the gradients
 over the mesh's data axis and applies the optimizer in place.
@@ -27,6 +28,25 @@ over the mesh's data axis and applies the optimizer in place.
   its own where none rides or the wire is cast. After the backward the
   step waits for every bucket, casts back, and scales each gradient by
   1/n in its own dtype.
+- **PowerSGD** (``compression="powersgd[:r]"``, bucketed path only).
+  ``plan_overlap`` keeps the eligible matrices (``ops/compression.py``
+  ``powersgd_eligible``) in buckets of their own, tagged ``powersgd:r``;
+  the rest take the exact buckets above. A low-rank bucket's launch
+  adds each residual to its gradient (M = g + e, float32), starts the
+  SUM allreduce of the packed P = M Q, and with the guard on an exact
+  float32 allreduce of its finite flag (the flag never rides the
+  factor wire). After the backward the step waits for each bucket's P,
+  orthogonalizes it, starts the allreduce of the packed Q' = M^T P,
+  then decompresses (P Q'^T, scaled by 1/n in float32 and cast to the
+  gradient's dtype) and keeps Q' and e' = M - P Q'^T / n as the next
+  step's state. A vetoed step (any bucket's vote) leaves every Q and e
+  bitwise as they were.
+  The state is the step's ``compression_state()`` / ``set_compression_
+  state(state)``, ``{"q": {leaf index: (m, r)}, "e": {leaf index: (n,
+  m)}}`` of float32 tensors on the parameters' device.
+  HOROVOD_COMPRESSION_WARMUP_STEPS keeps the reference's meaning on
+  this plane: the caller runs a ``compression="none"`` step for those
+  steps, then this one.
 - **Monolithic (overlap off).** No hook: after the backward the same
   buckets launch in plan order and the step waits for them. The
   reference's docstring says its two paths are numerically the same
@@ -40,11 +60,28 @@ NaN on the reduced gradients (``numerics.imprint_non_finite``), which a
 ``metrics["aux"]`` are averaged over the batch axes. A mesh of one rank,
 or no mesh, has no bucket and no collective: the single-device step.
 
+The ``numerics.grad`` chaos seam (``numerics.maybe_corrupt_grads``)
+fires once per step, on the first bucket's gradients before its finite
+flag: the reference's jitted step skips the seam (it fires on concrete
+values only), the port's step runs eagerly and takes it, as the eager
+plane does.
+
 Declared differences from the JAX package: each rank passes its own
 batch shard (Horovod's way), not a global batch that shard_map splits;
 the step takes the model and updates it in place. Under gloo, CUDA
-tensors go through host memory (``ops/collective_ops.py``). PowerSGD
-compression is ROADMAP A.8 and mesh axes that shard the model are A.9.
+tensors go through host memory (``ops/collective_ops.py``). Mesh axes
+that shard the model are ROADMAP A.9. PowerSGD compresses each torch
+parameter as its own matrix in its stored (out, in) layout, where the
+reference's flagship tree stacks the layers, (L, in, out), and folds
+them into one matrix; the warm-start Q is the port's own draw
+(``ops/compression.py``); each rank holds its own residual (n, m), the
+rows [r n, (r + 1) n) of the reference's global (n_ranks n, m) one; the
+step's veto freezes every low-rank bucket's Q and e, as the reference's
+eager plane does, where its jitted step gates each bucket by that
+bucket's own flag (so a step vetoed elsewhere still advances it); the
+step keeps the state itself instead of taking and returning it, and
+``init_compression_state`` returns the state alone (there are no
+shard_map specs).
 
 Optimizer parity: the counterpart of ``optax.adamw(lr)`` is
 ``torch.optim.AdamW(params, lr, betas=(0.9, 0.999), eps=1e-8,
@@ -70,7 +107,12 @@ from ..ops.bucketing import (assignment_digest, dtype_name,
                              partition_buckets, split_by_dtype, tree_leaves)
 from ..ops.collective_ops import (Average, Sum, _all_reduce_async,
                                   _reduce_group)
-from ..ops.compression import Compression
+from ..ops.compression import (Compression, CompressionSpec,
+                                effective_rank, init_q, matrix_shape,
+                                powersgd_compress, powersgd_decompress,
+                                powersgd_eligible, powersgd_pack,
+                                powersgd_project,
+                                powersgd_wire_elements, resolve_compression)
 from .mesh import Mesh, _live_axes, batch_axes, require_data_parallel
 
 
@@ -98,27 +140,27 @@ def overlap_threshold_bytes() -> int:
 _WIRE_DTYPES = {"fp16": torch.float16, "bf16": torch.bfloat16}
 
 
-def compression_spec(compression: Optional[str] = None) -> str:
-    """Resolve the builder's compression to the wire transform of every
-    bucket, the reference's tag: the argument, else the
-    HOROVOD_COMPRESSION knob. Accepted: "none", "fp16", "bf16"; PowerSGD
-    ("powersgd", "powersgd:4", "powersgd(rank=4)") raises, citing
-    ROADMAP A.8; anything else raises ValueError."""
+def compression_spec(compression: Optional[str] = None,
+                     rank: Optional[int] = None,
+                     min_elements: Optional[int] = None) -> CompressionSpec:
+    """Resolve the builder's compression config: explicit arguments win,
+    else the HOROVOD_COMPRESSION knob family (Config-aware, like the
+    overlap knobs). A rank given here wins over a "powersgd:r" suffix,
+    which wins over HOROVOD_COMPRESSION_RANK."""
     from ..common.config import knob_default
     name = compression
     if name is None:
         name = str(_numerics._cfg("HOROVOD_COMPRESSION",
                                   knob_default("HOROVOD_COMPRESSION")))
-    raw = str(name).strip().lower()
-    if raw.startswith("powersgd"):
-        raise NotImplementedError(
-            f"compression={raw!r}: PowerSGD is not ported yet (ROADMAP "
-            f"A.8); the port takes none, fp16 and bf16")
-    if raw not in ("none", "fp16", "bf16"):
-        raise ValueError(
-            f"unknown HOROVOD_COMPRESSION value {raw!r} (expected "
-            f"none / fp16 / bf16 / powersgd[:rank])")
-    return raw
+    if rank is None and not any(c in str(name) for c in ":("):
+        rank = int(_numerics._cfg(
+            "HOROVOD_COMPRESSION_RANK",
+            knob_default("HOROVOD_COMPRESSION_RANK")))
+    if min_elements is None:
+        min_elements = int(_numerics._cfg(
+            "HOROVOD_COMPRESSION_MIN_ELEMENTS",
+            knob_default("HOROVOD_COMPRESSION_MIN_ELEMENTS")))
+    return resolve_compression(name, rank=rank, min_elements=min_elements)
 
 
 # The LAST build_train_step's overlap resolution (written at build time,
@@ -185,9 +227,16 @@ def _flag_carrier_group(groups, dtypes) -> Optional[int]:
 
 def _plan_wire(idxs, leaves, guard: bool,
                comp: str = "none") -> Tuple[WireGroup, ...]:
-    """Per-dtype wire groups of one bucket, from shapes and dtypes."""
+    """Per-dtype wire groups of one bucket, from shapes and dtypes; a
+    "powersgd:r" bucket's are its two float32 factor allreduces, packed
+    P then packed Q (its flag is an allreduce of its own, no group)."""
     dtypes = [dtype_name(leaves[i].dtype) for i in idxs]
     shapes = [tuple(leaves[i].shape) for i in idxs]
+    if comp.startswith("powersgd"):
+        rank = int(comp.split(":", 1)[1])
+        els = [powersgd_wire_elements(s, rank) for s in shapes]
+        return (WireGroup("float32", sum(e[0] for e in els), False, None),
+                WireGroup("float32", sum(e[1] for e in els), False, None))
     groups = split_by_dtype(dtypes)
     if comp in _WIRE_DTYPES:
         out = []
@@ -225,31 +274,47 @@ def _bucketable(leaf) -> bool:
 def plan_overlap(params: Any, mesh: Optional[Mesh], *,
                  overlap_threshold: Optional[int] = None,
                  guard: Optional[bool] = None,
-                 compression: Optional[str] = None) -> OverlapPlan:
+                 compression: Optional[str] = None,
+                 compression_rank: Optional[int] = None,
+                 compression_min_elements: Optional[int] = None
+                 ) -> OverlapPlan:
     """The bucket plan ``build_train_step(overlap=True)`` follows: a
     pure function of the leaves' order, shapes and dtypes, the mesh's
-    axis sizes, the threshold, the guard and the compression, so every
-    rank derives the same plan. Defaults are the builder's (the
+    axis sizes, the threshold, the guard and the compression config, so
+    every rank derives the same plan. Defaults are the builder's (the
     HOROVOD_FUSION_THRESHOLD, HOROVOD_NUMERICS_GUARD and
     HOROVOD_COMPRESSION knobs). Parameters that need no gradient are
-    left out, as integer leaves are in the JAX package."""
+    left out, as integer leaves are in the JAX package. Under powersgd
+    the eligible leaves form bucket families of their own (the
+    partition key is (reduce axes, eligible)), each bucket is tagged
+    "powersgd:r" or "none", and the digest carries the tags."""
     require_data_parallel(mesh)
     bthresh = (overlap_threshold_bytes() if overlap_threshold is None
                else int(overlap_threshold))
     g = _numerics.guard_enabled() if guard is None else bool(guard)
-    comp = compression_spec(compression)
+    spec = compression_spec(compression, compression_rank,
+                            compression_min_elements)
     leaves = tree_leaves(params)
     live = _live_axes(mesh)
     raxes_of = [live for _ in leaves]
     bucketable = [i for i in range(len(leaves))
                   if raxes_of[i] and _bucketable(leaves[i])]
-    parts = partition_buckets([leaves[i] for i in bucketable], bthresh,
-                              key_fn=lambda j, leaf: raxes_of[
-                                  bucketable[j]])
+    lowrank = ({i for i in bucketable if raxes_of[i] == live
+                and powersgd_eligible(leaves[i].shape, leaves[i].dtype,
+                                      spec.min_elements)}
+               if spec.kind == "powersgd" else set())
+    parts = partition_buckets(
+        [leaves[i] for i in bucketable], bthresh,
+        key_fn=lambda j, leaf: (raxes_of[bucketable[j]],
+                                bucketable[j] in lowrank))
     bucket_idx = tuple(tuple(bucketable[j] for j in b.indices)
                        for b in parts)
     bucketed = {i for idxs in bucket_idx for i in idxs}
-    comp_tags = tuple(comp for _ in bucket_idx)
+    if spec.kind == "powersgd":
+        comp_tags = tuple(spec.tag() if idxs[0] in lowrank else "none"
+                          for idxs in bucket_idx)
+    else:
+        comp_tags = tuple(spec.kind for _ in bucket_idx)
     return OverlapPlan(
         threshold=bthresh, guard=g, n_leaves=len(leaves),
         bucket_leaf_indices=bucket_idx,
@@ -258,7 +323,7 @@ def plan_overlap(params: Any, mesh: Optional[Mesh], *,
         wire=tuple(_plan_wire(idxs, leaves, g, comp_tags[bid])
                    for bid, idxs in enumerate(bucket_idx)),
         digest=assignment_digest(
-            parts, compression=comp_tags if comp != "none" else None),
+            parts, compression=comp_tags if spec.kind != "none" else None),
         leaf_raxes=tuple(raxes_of),
         loose_inexact=tuple(i for i in range(len(leaves))
                             if i not in bucketed and _bucketable(leaves[i])),
@@ -268,6 +333,37 @@ def plan_overlap(params: Any, mesh: Optional[Mesh], *,
 def _wire_bytes(plan: OverlapPlan) -> int:
     return int(sum(g.n * _itemsize(g.dtype)
                    for groups in plan.wire for g in groups))
+
+
+def init_compression_state(params: Any, mesh: Optional[Mesh], *,
+                           compression: Optional[str] = None,
+                           compression_rank: Optional[int] = None,
+                           compression_min_elements: Optional[int] = None,
+                           overlap_threshold: Optional[int] = None,
+                           guard: Optional[bool] = None
+                           ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The PowerSGD state a ``compression="powersgd..."`` step starts
+    from: ``{"q": {str(leaf index): (m, r)}, "e": {str(leaf index): (n,
+    m)}}``, float32 on each parameter's device, keyed by the leaves of
+    the same ``plan_overlap``'s low-rank buckets. Q is ``init_q``'s warm
+    start (the same on every rank); e, this rank's residual, is zero."""
+    plan = plan_overlap(params, mesh, overlap_threshold=overlap_threshold,
+                        guard=guard, compression=compression,
+                        compression_rank=compression_rank,
+                        compression_min_elements=compression_min_elements)
+    leaves = tree_leaves(params)
+    state: Dict[str, Dict[str, torch.Tensor]] = {"q": {}, "e": {}}
+    for bid, idxs in enumerate(plan.bucket_leaf_indices):
+        tag = plan.bucket_compression[bid]
+        if not tag.startswith("powersgd"):
+            continue
+        rank = int(tag.split(":", 1)[1])
+        for i in idxs:
+            shape, dev = tuple(leaves[i].shape), leaves[i].device
+            state["q"][str(i)] = init_q(shape, rank, i, dev)
+            state["e"][str(i)] = torch.zeros(matrix_shape(shape),
+                                             dtype=torch.float32, device=dev)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -280,22 +376,34 @@ class _Group(NamedTuple):
     rides: bool
 
 
+class _LowRank:
+    """A PowerSGD bucket in flight: M and P per leaf, the packed P's
+    allreduce, then Q's, and the flag's."""
+
+    def __init__(self, ms, ps, pending, flag_pending, nbytes):
+        self.ms, self.ps, self.pending = ms, ps, pending
+        self.flag_pending, self.nbytes = flag_pending, nbytes
+        self.out_ps = self.qns = self.q_pending = None
+
+
 class _BucketExchange:
     """One step's bucketed reduction: ``ready(i)`` from parameter i's
-    hook (overlap on), ``finish()`` after the backward."""
+    hook (overlap on), ``finish()`` after the backward. ``cstate`` is
+    the PowerSGD state the low-rank buckets read and update."""
 
     def __init__(self, plan: OverlapPlan, params: List[torch.Tensor],
                  pset, n_devices: int, wire_dtype: Optional[torch.dtype],
                  guard: bool, scale: Optional[float],
-                 probe: Optional[Callable]):
+                 probe: Optional[Callable], cstate=None):
         self.plan, self.params, self.pset = plan, params, pset
         self.n_devices, self.wire_dtype = n_devices, wire_dtype
         self.guard, self.scale, self.probe = guard, scale, probe
+        self.cstate = cstate
         self.bucket_of = {i: b for b, idxs in
                           enumerate(plan.bucket_leaf_indices) for i in idxs}
         self.waiting = [len(idxs) for idxs in plan.bucket_leaf_indices]
         self.next = 0
-        self.launched: List[Tuple[List[_Group], Any]] = []
+        self.launched: List[Any] = []
         self.callbacks: List[Any] = []
         self._lock = threading.Lock()
 
@@ -312,16 +420,31 @@ class _BucketExchange:
         self.callbacks.append(pending.future.then(
             lambda _f: probe(bid, "reduced", nbytes)))
 
-    def launch(self, bid: int) -> None:
-        """Pack bucket ``bid`` per dtype group, cast, and start one
-        allreduce per group (and the flag's own where it rides none)."""
+    def _grads(self, bid: int) -> List[torch.Tensor]:
+        """Bucket ``bid``'s gradients (zeros where a parameter got none);
+        the first bucket's pass the ``numerics.grad`` seam."""
         idxs = self.plan.bucket_leaf_indices[bid]
-        grads = []
         for i in idxs:
             p = self.params[i]
             if p.grad is None:          # no gradient this step: zeros
                 p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+        grads = [self.params[i].grad for i in idxs]
+        if bid == 0:
+            seamed = _numerics.maybe_corrupt_grads(grads)
+            if seamed is not grads:
+                for i, g in zip(idxs, seamed):
+                    self.params[i].grad = g
+                grads = seamed
+        return grads
+
+    def launch(self, bid: int) -> None:
+        """Pack bucket ``bid`` per dtype group, cast, and start one
+        allreduce per group (and the flag's own where it rides none);
+        a PowerSGD bucket starts its P allreduce."""
+        grads = self._grads(bid)
+        if self.plan.bucket_compression[bid].startswith("powersgd"):
+            self._launch_lowrank(bid, grads)
+            return
         dtypes = [g.dtype for g in grads]
         groups = split_by_dtype(dtypes)
         flag = (_numerics.local_finite_flag(grads)
@@ -351,16 +474,69 @@ class _BucketExchange:
             flag_pending = _all_reduce_async(flag.reshape(1), self.pset, Sum)
         self.launched.append((out, flag_pending))
 
-    def finish(self) -> List[torch.Tensor]:
+    def _launch_lowrank(self, bid: int, grads: List[torch.Tensor]) -> None:
+        idxs = self.plan.bucket_leaf_indices[bid]
+        flag = _numerics.local_finite_flag(grads) if self.guard else None
+        ms, ps = powersgd_compress(
+            [g.reshape(matrix_shape(g.shape)) for g in grads],
+            [self.cstate["q"][str(i)] for i in idxs],
+            [self.cstate["e"][str(i)] for i in idxs])
+        nbytes = 4 * sum(g.n for g in self.plan.wire[bid])
+        if self.probe is not None:
+            self.probe(bid, "ready", nbytes)
+        pending = _all_reduce_async(powersgd_pack(ps), self.pset, Sum)
+        flag_pending = (_all_reduce_async(flag.reshape(1), self.pset, Sum)
+                        if flag is not None else None)
+        self.launched.append(_LowRank(ms, ps, pending, flag_pending, nbytes))
+
+    def _finish_lowrank(self, bid: int, lr: _LowRank):
+        """Decompress a low-rank bucket into its ``.grad``s; returns
+        its vote (None with the guard off) and its new state,
+        ``{leaf key: (q, e)}``."""
+        idxs = self.plan.bucket_leaf_indices[bid]
+        outs, new_qs, new_es = powersgd_decompress(
+            lr.ms, lr.out_ps, lr.qns, lr.q_pending.wait(), self.n_devices)
+        vote = None
+        if lr.flag_pending is not None:
+            vote = lr.flag_pending.wait()[0] > self.n_devices - 0.5
+        for i, out in zip(idxs, outs):
+            p = self.params[i]
+            if self.scale is not None:
+                out = out * torch.tensor(self.scale, dtype=out.dtype,
+                                         device=out.device)
+            p.grad = out.reshape(p.shape).to(p.dtype)
+        return vote, {str(i): qe for i, qe in zip(idxs,
+                                                  zip(new_qs, new_es))}
+
+    def finish(self) -> Optional[torch.Tensor]:
         """Launch what no hook launched (parameters without a gradient),
         wait for every bucket, unpack, cast back and scale into each
-        parameter's ``.grad``. Returns the buckets' votes."""
+        parameter's ``.grad``, and keep the new PowerSGD state unless
+        the step is vetoed. Returns the step's vote, every bucket's
+        (None with the guard off)."""
         with self._lock:
             while self.next < len(self.waiting):
                 self.launch(self.next)
                 self.next += 1
-        votes = []
-        for bid, (groups, flag_pending) in enumerate(self.launched):
+        # Each low-rank bucket's Q' allreduce starts as soon as its P is
+        # in, in plan order, while the later buckets' traffic flows.
+        for bid, lr in enumerate(self.launched):
+            if isinstance(lr, _LowRank):
+                lr.out_ps, lr.qns = powersgd_project(lr.ms, lr.ps,
+                                                     lr.pending.wait())
+                lr.q_pending = _all_reduce_async(powersgd_pack(lr.qns),
+                                                 self.pset, Sum)
+                if self.probe is not None:
+                    self._on_reduced(lr.q_pending, bid, lr.nbytes)
+        votes, new_state = [], {}
+        for bid, entry in enumerate(self.launched):
+            if isinstance(entry, _LowRank):
+                vote, state = self._finish_lowrank(bid, entry)
+                new_state.update(state)
+                if vote is not None:
+                    votes.append(vote)
+                continue
+            groups, flag_pending = entry
             idxs = self.plan.bucket_leaf_indices[bid]
             rflag = None
             for grp in groups:
@@ -384,9 +560,18 @@ class _BucketExchange:
                 rflag = flag_pending.wait()[0]
             if rflag is not None:
                 votes.append(rflag > self.n_devices - 0.5)
+        ok = None
+        for vote in votes:
+            ok = vote if ok is None else torch.logical_and(
+                ok, vote.to(ok.device))
+        for key, (q, e) in new_state.items():
+            if ok is not None:          # a veto keeps every Q and e
+                q = torch.where(ok, q, self.cstate["q"][key])
+                e = torch.where(ok, e, self.cstate["e"][key])
+            self.cstate["q"][key], self.cstate["e"][key] = q, e
         for fut in self.callbacks:
             fut.wait()
-        return votes
+        return ok
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +601,8 @@ def build_train_step(
     overlap_threshold: Optional[int] = None,
     overlap_probe: Optional[Callable[[int, str, int], None]] = None,
     compression: Optional[str] = None,
+    compression_rank: Optional[int] = None,
+    compression_min_elements: Optional[int] = None,
 ) -> Callable[[torch.nn.Module, Mapping[str, Any]], Dict[str, Any]]:
     """Build ``step(model, batch) -> metrics``.
 
@@ -432,16 +619,25 @@ def build_train_step(
     ``overlap`` (default HOROVOD_JIT_OVERLAP) picks the bucketed path,
     ``overlap_threshold`` its bucket size (default
     HOROVOD_FUSION_THRESHOLD) and ``compression`` its wire ("none",
-    "fp16" or "bf16"; default HOROVOD_COMPRESSION), which needs the
-    bucketed path. ``overlap_probe(bucket_id, phase, nbytes)`` is called
-    with "ready" when a bucket's group is launched and "reduced" when
-    its allreduce completes (from the collective's thread), as
-    ``tracing.OverlapProbe`` records them. ``grad_reducer`` receives
+    "fp16", "bf16" or "powersgd[:r]", with ``compression_rank`` and
+    ``compression_min_elements``; default the HOROVOD_COMPRESSION knob
+    family), which needs the bucketed path. ``overlap_probe(bucket_id,
+    phase, nbytes)`` is called with "ready" when a bucket's group (a
+    PowerSGD bucket's P) is launched and "reduced" when its allreduce
+    (a PowerSGD bucket's Q') completes (from the collective's thread),
+    as ``tracing.OverlapProbe`` records them. ``grad_reducer`` receives
     the summed gradients ``{name: gradient}`` and returns the gradients
-    to apply, scaled as it sees fit."""
+    to apply, scaled as it sees fit.
+
+    Under powersgd the returned step also has ``compression_state()``,
+    the live ``{"q": ..., "e": ...}`` state (``init_compression_state``
+    at the first step), and ``set_compression_state(state)``, which
+    replaces it (checked against the plan at the next step)."""
     dev = resolve_device(device, "build_train_step")
     require_data_parallel(mesh)
-    comp = compression_spec(compression)
+    cspec = compression_spec(compression, compression_rank,
+                             compression_min_elements)
+    comp = cspec.tag()
     use_overlap = overlap_enabled() if overlap is None else bool(overlap)
     bthresh = (overlap_threshold_bytes() if overlap_threshold is None
                else int(overlap_threshold))
@@ -461,20 +657,24 @@ def build_train_step(
     scale = (1.0 / n_batch
              if grad_reducer is None and n_batch != 1 else None)
     wire_dtype = _WIRE_DTYPES.get(comp)
+    use_powersgd = cspec.kind == "powersgd"
 
     _last_overlap_info.clear()
     _last_overlap_info.update(enabled=use_overlap, threshold=bthresh,
                               traced=False)
 
-    # The model the step last saw: its parameters, names and plan.
-    bound: Dict[str, Any] = {"model": None}
+    # The model the step last saw: its parameters, names and plan; the
+    # PowerSGD state (``cstate``), and one set for the next step
+    # (``given``).
+    bound: Dict[str, Any] = {"model": None, "cstate": None, "given": None}
 
     def bind(model: torch.nn.Module) -> None:
         named = list(model.named_parameters())
         plan = plan_overlap(model, mesh, overlap_threshold=bthresh,
-                            guard=guard, compression=comp)
+                            guard=guard, compression=comp,
+                            compression_min_elements=cspec.min_elements)
         bound.update(model=model, names=[n for n, _ in named],
-                     params=[p for _, p in named], plan=plan)
+                     params=[p for _, p in named], plan=plan, cstate=None)
         if use_overlap:
             _last_overlap_info.clear()
             _last_overlap_info.update(
@@ -487,6 +687,20 @@ def build_train_step(
                 compression=comp,
                 raw_bucket_bytes=int(sum(plan.bucket_nbytes)),
                 wire_bucket_bytes=_wire_bytes(plan))
+
+    def compression_state_for(model: torch.nn.Module):
+        """The state this step runs with: a given one, checked, else
+        the one in use, else a fresh one."""
+        if bound["given"] is not None:
+            bound["cstate"] = _checked_state(bound["given"], bound["plan"],
+                                             bound["params"])
+            bound["given"] = None
+        elif bound["cstate"] is None:
+            bound["cstate"] = init_compression_state(
+                model, mesh, compression=comp,
+                compression_min_elements=cspec.min_elements,
+                overlap_threshold=bthresh, guard=guard)
+        return bound["cstate"]
 
     def batch_mean(x: torch.Tensor) -> torch.Tensor:
         # Off the eager engine, like the bucketed exchange: the
@@ -503,13 +717,14 @@ def build_train_step(
         if bound["model"] is not model:
             bind(model)
         params, plan = bound["params"], bound["plan"]
+        cstate = compression_state_for(model) if use_powersgd else None
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         optimizer.zero_grad(set_to_none=True)
         exchange, hooks = None, []
         if plan.bucket_leaf_indices:    # a live axis
             exchange = _BucketExchange(plan, params, pset, n_devices,
                                        wire_dtype, guard, scale,
-                                       overlap_probe)
+                                       overlap_probe, cstate)
             record_wire(comp, int(sum(plan.bucket_nbytes)),
                         _wire_bytes(plan))
             if use_overlap:
@@ -525,9 +740,7 @@ def build_train_step(
                 h.remove()
         ok = None
         if exchange is not None:
-            for vote in exchange.finish():
-                ok = vote if ok is None else torch.logical_and(
-                    ok, vote.to(ok.device))
+            ok = exchange.finish()
         elif guard:                     # one rank: its own vote
             ok = _numerics.local_finite_flag(
                 [p.grad for p in params if p.grad is not None]) > 0.5
@@ -547,4 +760,53 @@ def build_train_step(
         optimizer.step()
         return metrics
 
+    if use_powersgd:
+        def compression_state() -> Dict[str, Dict[str, torch.Tensor]]:
+            """The live PowerSGD state (None before the first step,
+            unless one was set)."""
+            return bound["given"] or bound["cstate"]
+
+        def set_compression_state(state: Mapping[str, Mapping[str, Any]]
+                                  ) -> None:
+            """Replace the PowerSGD state: ``{"q": {...}, "e": {...}}``
+            keyed by leaf index; taken as float32 on each parameter's
+            device at the next step, which checks its keys and shapes
+            against the plan."""
+            bound["given"] = {k: dict(state[k]) for k in ("q", "e")}
+
+        step.compression_state = compression_state
+        step.set_compression_state = set_compression_state
     return step
+
+
+def _checked_state(state, plan: OverlapPlan, params: List[torch.Tensor]):
+    """``state`` as float32 tensors on each parameter's device, after
+    checking that it holds exactly the plan's low-rank leaves, Q at
+    (m, r) and e at (n, m); a mismatch raises rather than drop the
+    residual or put another rank's factors on the wire."""
+    rank_of = {str(i): int(plan.bucket_compression[bid].split(":", 1)[1])
+               for bid, idxs in enumerate(plan.bucket_leaf_indices)
+               if plan.bucket_compression[bid].startswith("powersgd")
+               for i in idxs}
+    have = set(state["q"])
+    if have != set(rank_of) or set(state["e"]) != set(rank_of):
+        raise ValueError(
+            f"compression state does not match the compressed leaf set "
+            f"(state has {sorted(have)}, plan compresses "
+            f"{sorted(rank_of, key=int)}); build it with "
+            f"init_compression_state under the same mesh, threshold and "
+            f"compression config")
+    out: Dict[str, Dict[str, torch.Tensor]] = {"q": {}, "e": {}}
+    for key, rank in rank_of.items():
+        p = params[int(key)]
+        n, m = matrix_shape(p.shape)
+        want = {"q": (m, effective_rank(p.shape, rank)), "e": (n, m)}
+        for part, shape in want.items():
+            t = torch.as_tensor(state[part][key]).to(
+                device=p.device, dtype=torch.float32)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"compression state {part}[{key}] is "
+                                 f"{tuple(t.shape)}, not {shape}, for a "
+                                 f"parameter of shape {tuple(p.shape)}")
+            out[part][key] = t
+    return out

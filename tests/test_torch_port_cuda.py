@@ -774,3 +774,39 @@ def test_gloo_vhdd_kernels_match_the_plain_branch_on_the_card(card, size,
                                     ref) <= tol
         assert chip_smoke.adasum_gaps(xs, ref)["plain_sum_gap"] > \
             chip_smoke.COLL_SEPARATION * tol
+
+
+@pytest.mark.parametrize("shape,dtype", [((4096, 11008), torch.bfloat16),
+                                         ((11008, 4096), torch.float32),
+                                         ((300, 7), torch.float32)])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_powersgd_round_on_the_card(card, n, shape, dtype):
+    """PowerSGD's arithmetic on the card (the stages of
+    ``powersgd_reduce``, n ranks' factors summed here) against the same
+    round in float64 on the host: the reduced matrix and each rank's
+    residual within chip_smoke's TOL_PSGD, and a plain sum or an
+    unorthogonalized P missing it by FAULT_MARGIN times that."""
+    from horovod_tpu_torch.ops import compression as comp
+    gen = torch.Generator(device=card).manual_seed(n)
+    mats = [torch.randn(shape, generator=gen, device=card).to(dtype)
+            for _ in range(n)]
+    q = comp.init_q(shape, 4, 0, card)
+    es = [torch.zeros(shape, device=card) for _ in range(n)]
+    staged = [comp.powersgd_compress([m], [q], [e])
+              for m, e in zip(mats, es)]
+    red_p = sum(comp.powersgd_pack(ps) for _, ps in staged)
+    proj = [comp.powersgd_project(ms, ps, red_p) for ms, ps in staged]
+    red_q = sum(comp.powersgd_pack(qns) for _, qns in proj)
+    host = [m.float().cpu().numpy() for m in mats]
+    ref, wrong = chip_smoke.powersgd_round_f64(host, q.cpu().numpy())
+    tol = chip_smoke.TOL_PSGD
+    for r in range(n):
+        outs, new_qs, new_es = comp.powersgd_decompress(
+            staged[r][0], proj[r][0], proj[r][1], red_q, n)
+        assert outs[0].is_cuda and new_es[0].dtype == torch.float32
+        assert chip_smoke._rel64(outs[0].cpu().numpy(), ref) <= tol
+        assert chip_smoke._rel64(new_es[0].cpu().numpy(),
+                                 host[r] - ref / n) <= tol
+    for name, w in wrong.items():
+        assert chip_smoke._rel64(w, ref) > chip_smoke.FAULT_MARGIN * tol, \
+            name

@@ -490,15 +490,16 @@ def test_distributed_optimizer_is_a_subclass_of_the_wrapped_class():
 
 
 def test_process_sets_other_than_global_raise(monkeypatch):
-    """What still raises: PowerSGD (ROADMAP A.8), and the process-set
-    errors of the reference (duplicate ranks, ranks out of range, an
-    unregistered set, a rank outside the set, removing the global set).
-    The gloo worlds of tests/test_torch_port_collectives.py run the
-    sets themselves."""
+    """What raises: a PowerSGD rank below 1 (the reference's check), and
+    the process-set errors of the reference (duplicate ranks, ranks out
+    of range, an unregistered set, a rank outside the set, removing the
+    global set). The gloo worlds of tests/test_torch_port_collectives.py
+    run the sets themselves."""
     from horovod_tpu_torch.common.topology import Topology
     from horovod_tpu_torch.ops.process_set import ProcessSetTable
-    with pytest.raises(NotImplementedError, match="PowerSGD|ROADMAP"):
-        hvd.Compression.powersgd(rank=2)
+    assert hvd.Compression.powersgd(rank=2).rank == 2
+    with pytest.raises(ValueError, match="rank must be >= 1"):
+        hvd.Compression.powersgd(rank=0)
     with pytest.raises(ValueError, match="duplicate"):
         hvd.ProcessSet([0, 0])
     with pytest.raises(ValueError, match="out of range"):

@@ -35,8 +35,9 @@ DECLARED = {
          "differences, each pinned by\ntests/test_torch_port_"
          "isolation.py: this paragraph; the doc of\n"
          "HOROVOD_FLASH_ATTENTION, which here says the port does not "
-         "read it; and\nthe registry path named in the unknown-knob "
-         "errors.\n"),
+         "read it; the\ndocs of the four HOROVOD_COMPRESSION knobs, "
+         "which describe the port's\ntwo planes; and the registry "
+         "path named in the unknown-knob errors.\n"),
         ('''\
          "Pallas flash-attention kernel inside ring attention: '1' "
          "forces it, 'auto' tries it for supported shapes, '0' "
@@ -49,6 +50,64 @@ DECLARED = {
          "tensors, whatever this knob says."),'''),
         ('f"KNOBS in horovod_tpu/common/config.py")',
          'f"KNOBS in horovod_tpu_torch/common/config.py")'),
+        ('''\
+    Knob("HOROVOD_COMPRESSION", str, "none",
+         "Per-bucket gradient wire compression applied inside the "
+         "shared bucketing layer, both planes (jit bucketed psums and "
+         "the eager grouped allreduce): none (default; byte-identical "
+         "programs to the uncompressed builder, test-pinned), fp16 / "
+         "bf16 (cast wire, the reference's ceiling), or "
+         "powersgd[:rank] (low-rank factor wire with error feedback "
+         "— Vogels et al. NeurIPS 2019). The numerics finite-flag "
+         "vote never rides a compressed carrier: compressed buckets "
+         "carry the veto as a separate exact f32 psum (HVD007 "
+         "check (e))."),
+    Knob("HOROVOD_COMPRESSION_RANK", int, 4,
+         "PowerSGD approximation rank r when HOROVOD_COMPRESSION="
+         "powersgd carries no explicit :rank suffix. Wire per "
+         "compressed matrix drops from n*m to r*(n+m) elements; "
+         "rank<=4 already clears 4x on the VGG/transformer dense "
+         "buckets (BENCH_compression_ab_r13.json)."),
+    Knob("HOROVOD_COMPRESSION_WARMUP_STEPS", int, 0,
+         "Steps to run the EXACT reduction before switching to the "
+         "compressed wire. The eager plane counts steps in its "
+         "optimizer state and switches in place; the jit plane's "
+         "compressed step is a separate compiled program, so the "
+         "harness (bench.py convergence loop is the template) runs "
+         "the compression=none build for the first N steps and then "
+         "switches — one extra compile, no in-program branch (the "
+         "traced wire stays the plan HVD007 verified)."),
+    Knob("HOROVOD_COMPRESSION_MIN_ELEMENTS", int, 4096,
+         "PowerSGD bypass floor: leaves with fewer elements (and all "
+         "non-2D-reshapeable leaves — biases, scalars, norm gains) "
+         "take the exact path. Low-rank wire only pays for dense "
+         "matrices; below this size the factor handshake costs more "
+         "than it saves."),
+''',
+         '''\
+    Knob("HOROVOD_COMPRESSION", str, "none",
+         "Gradient wire compression of the data-parallel train step's "
+         "buckets and of DistributedOptimizer: none (default), fp16 / "
+         "bf16 (cast wire), or powersgd[:rank] (low-rank factor wire "
+         "with error feedback — Vogels et al. NeurIPS 2019). The "
+         "numerics finite-flag vote never rides a compressed wire: it "
+         "travels as an exact float32 allreduce of its own."),
+    Knob("HOROVOD_COMPRESSION_RANK", int, 4,
+         "PowerSGD approximation rank r when HOROVOD_COMPRESSION="
+         "powersgd carries no explicit :rank suffix. The wire of one "
+         "compressed n x m matrix drops from n*m elements in its own "
+         "dtype to r*(n+m) float32 elements."),
+    Knob("HOROVOD_COMPRESSION_WARMUP_STEPS", int, 0,
+         "Steps to run the EXACT reduction before switching to the "
+         "compressed wire. DistributedOptimizer counts its steps and "
+         "switches in place; for the data-parallel train step the "
+         "caller runs a compression='none' step for the first N steps "
+         "and then the compressed one."),
+    Knob("HOROVOD_COMPRESSION_MIN_ELEMENTS", int, 4096,
+         "PowerSGD bypass floor: parameters with fewer elements (and "
+         "all that are not matrices — biases, scalars, norm gains) "
+         "take the exact path."),
+'''),
     ],
     "ops/bucketing.py": [
         ('''\

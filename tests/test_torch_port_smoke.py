@@ -284,3 +284,77 @@ def test_phase_12_rehearses_on_the_cpu():
     assert res["out_of_order"]["rank 0"]["inline_distance"] > 0
     assert ranks[0]["join"]["steps"][-1]["local_bitwise"]
     assert res["world1"]["runs"]["native"]["core"] == "NativeCore"
+
+
+def test_powersgd_gate_admits_the_round_and_rejects_wrong_answers():
+    """Phase 13's gate (e): the port's float32 round over two ranks is
+    within TOL_PSGD of the float64 round, and a plain sum or an
+    unorthogonalized P miss it by FAULT_MARGIN times that."""
+    from horovod_tpu_torch.ops import compression as comp
+    rs = np.random.RandomState(0)
+    mats = [rs.randn(96, 64).astype(np.float32) for _ in range(2)]
+    q = comp.init_q((96, 64), chip_smoke.PSGD_RANK, 9, "cpu")
+    staged = [comp.powersgd_compress([torch.from_numpy(m)], [q],
+                                     [torch.zeros(96, 64)]) for m in mats]
+    red_p = sum(comp.powersgd_pack(ps) for _, ps in staged)
+    proj = [comp.powersgd_project(ms, ps, red_p) for ms, ps in staged]
+    red_q = sum(comp.powersgd_pack(qns) for _, qns in proj)
+    out = comp.powersgd_decompress(staged[0][0], proj[0][0], proj[0][1],
+                                   red_q, 2)[0][0]
+    ref, wrong = chip_smoke.powersgd_round_f64(mats, q.numpy())
+    assert chip_smoke._rel64(out.numpy(), ref) <= chip_smoke.TOL_PSGD
+    for name, w in wrong.items():
+        assert chip_smoke._rel64(w, ref) > \
+            chip_smoke.FAULT_MARGIN * chip_smoke.TOL_PSGD, name
+    assert chip_smoke._sigma_ratio(out) < chip_smoke.PSGD_LOW_RANK
+    assert chip_smoke._sigma_ratio(torch.from_numpy(mats[0] + mats[1])) \
+        >= chip_smoke.PSGD_LOW_RANK
+
+
+def test_powersgd_reckoning_of_the_flagship():
+    """Gate (b)'s reckoning from the parameters alone equals the plan's
+    wire at Llama-2-7B width, 2 layers: 769,024 factor elements and the
+    five float32 norms with the flag riding them; the plan is
+    PSGD_PLAN."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import mesh as tmesh
+    from horovod_tpu_torch.parallel import train as ttrain
+    model = tfm.Transformer(tfm.TransformerConfig(
+        **dict(chip_smoke.LLAMA2_7B, n_layers=chip_smoke.DP_LAYERS)),
+        torch.device("meta"))
+    factors, exact = chip_smoke.psgd_reckoning(
+        model, chip_smoke.PSGD_MIN_ELEMENTS)
+    assert (factors, exact) == (4 * 769_024, 4 * 5 * 4096 + 4)
+    plan = ttrain.plan_overlap(model, tmesh.Mesh({"data": 2}),
+                               overlap_threshold=64 << 20, guard=True,
+                               compression="powersgd:4")
+    assert plan.digest == chip_smoke.PSGD_PLAN
+    assert ttrain._wire_bytes(plan) == factors + exact
+
+
+def test_phase_13_rehearses_on_the_cpu():
+    """Phase 13 at a small size on gloo and the CPU (every matrix
+    eligible at min_elements=256): both planes pass every gate, the
+    probe's float32 round is the float64 one's, the wrong answers miss,
+    and the two planes end each step bitwise equal (no launches: the
+    CPU runs the plain versions)."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import mesh as tmesh
+    from horovod_tpu_torch.parallel import train as ttrain
+    model = tfm.Transformer(tfm.TransformerConfig(**SMALL_DP),
+                            torch.device("meta"))
+    plan = ttrain.plan_overlap(model, tmesh.Mesh({"data": 2}),
+                               overlap_threshold=64 << 20, guard=True,
+                               compression="powersgd:4",
+                               compression_min_elements=256)
+    res = chip_smoke.phase_powersgd(device="cpu", cfg_kw=SMALL_DP, seq=32,
+                                    timeout=120, plan=plan.digest,
+                                    min_elements=256)
+    ranks = res["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert r["train"]["launches"] == {"fwd": 0, "dkv": 0, "dq": 0}
+        assert r["train"]["digests"] == r["optimizer"]["digests"]
+        assert r["train"]["steps"][0]["wire_bytes"] == \
+            ttrain._wire_bytes(plan)
+    assert ranks[0]["train"]["probe_rel_err"] <= 1e-5

@@ -226,16 +226,18 @@ def test_train_step_reports_aux_like_jax():
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    ({"compression": "powersgd"}, NotImplementedError, "A.8"),
+    ({"compression": "powersgd", "overlap": False}, ValueError,
+     "requires the bucketed overlap path"),
     ({"mesh": tmesh.Mesh({"data": 2, "tensor": 2})}, NotImplementedError,
      "A.9"),
     ({"compression": "fp16", "overlap": False}, ValueError,
      "requires the bucketed overlap path"),
-    ({"compression": "powersgd:4"}, NotImplementedError, "A.8")])
+    ({"compression": "powersgd:0"}, ValueError, "rank must be >= 1")])
 def test_train_step_refuses_what_the_nccl_slice_brings(kw, error, match):
-    """What the data-parallel step still refuses: PowerSGD (ROADMAP
-    A.8), a mesh axis that shards the model (A.9), and a wire cast
-    without the buckets that carry it (the reference's ValueError)."""
+    """What the data-parallel step refuses: a mesh axis that shards the
+    model (ROADMAP A.9), a wire cast or PowerSGD without the buckets
+    that carry it, and a PowerSGD rank below 1 (the reference's
+    ValueErrors)."""
     opt = ttrain.adamw([torch.nn.Parameter(torch.zeros(2))], LR)
     with pytest.raises(error, match=match):
         ttrain.build_train_step(lambda m, b: 0, opt, "cpu", **kw)
